@@ -158,3 +158,70 @@ def test_kernel_rejects_non_contiguous(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ta.flash_token_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     assert ta.launches == before
+
+
+def _bf16_case(seed, B, Nq, Nk, D, device, masked=0.3):
+    """bf16 q [B, Nq, D], k/v [B, Nk, D] and an fp32 bias masking about
+    `masked` of the keys, made from a seed with numpy."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, Nq, D)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Nk, D)).astype(np.float32))
+            for _ in range(2))
+    bias = torch.from_numpy(np.where(rng.random((B, Nk)) < masked, NEG_INF, 0.0)
+                            .astype(np.float32))
+    return [t.to(device) for t in (q.bfloat16(), k.bfloat16(), v.bfloat16(), bias)]
+
+
+def _assert_bf16_close(got, want):
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 5120, 960), (1, 1536, 3200)], ids=["(5,3)", "(10,5)"])
+def test_kernel_main_path_shapes_bf16(shape, cuda_device):
+    """The two sttn-auto kernel scales at full size, as the main path calls them."""
+    B, N, D = shape
+    q, k, v, bias = _bf16_case(11, B, N, N, D, cuda_device)
+    _assert_bf16_close(ta.flash_token_attention(q, k, v, bias),
+                       ta.token_attention_reference(q, k, v, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Nq,Nk", [(200, 300), (5, 300), (130, 129)])
+def test_kernel_query_and_key_counts(Nq, Nk, cuda_device):
+    """B = 2 with Nk not a multiple of the 128-key tile (the batch edge:
+    rows past N must not read the next batch's), and a query count under
+    one tile; one launches increment per call."""
+    q, k, v, bias = _bf16_case(12, 2, Nq, Nk, 256, cuda_device)
+    before = ta.launches
+    got = ta.flash_token_attention(q, k, v, bias)
+    assert ta.launches == before + 1
+    assert got.shape == (2, Nq, 256)
+    _assert_bf16_close(got, ta.token_attention_reference(q, k, v, bias))
+
+
+@pytest.mark.cuda
+def test_kernel_one_key_tile_all_masked(cuda_device):
+    """Keys 128..255 (one whole score tile) all masked, the other tiles not:
+    that tile's weights vanish in the merge of the tiles' partial sums."""
+    q, k, v, _ = _bf16_case(13, 1, 256, 384, 128, cuda_device)
+    bias = torch.zeros((1, 384), device=cuda_device)
+    bias[:, 128:256] = NEG_INF
+    got = ta.flash_token_attention(q, k, v, bias)
+    _assert_bf16_close(got, ta.token_attention_reference(q, k, v, bias))
+    keep = torch.cat([torch.arange(128), torch.arange(256, 384)]).to(cuda_device)
+    _assert_bf16_close(got, ta.token_attention_reference(q, k[:, keep].contiguous(),
+                                                         v[:, keep].contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [77, 300, 8])
+def test_kernel_widths_through_the_aligned_copy(D, cuda_device):
+    """D % 8 != 0 goes through the wrapper's zero-padded copy (scale from the
+    true D, output sliced back); D = 8 is the narrowest width TMA takes."""
+    q, k, v, bias = _bf16_case(14, 1, 150, 150, D, cuda_device)
+    got = ta.flash_token_attention(q, k, v, bias)
+    assert got.shape == (1, 150, D) and got.is_contiguous()
+    _assert_bf16_close(got, ta.token_attention_reference(q, k, v, bias))

@@ -152,15 +152,56 @@ def test_cuda_without_gpu_raises():
 
 
 def test_port_never_imports_jax():
+    """Every module of vsr_tpu_torch, and chip_smoke, imported in a fresh
+    process and `python -m vsr_tpu_torch --help` run there: nothing of jax,
+    flax or the JAX package vsr_tpu is loaded."""
     code = (
-        "import sys\n"
-        "import vsr_tpu_torch, vsr_tpu_torch.pipeline, vsr_tpu_torch.cli\n"
-        "import vsr_tpu_torch.inpaint.sttn_auto\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax'))\n"
-        "print(bad)\n"
+        "import importlib, pkgutil, sys\n"
+        "import vsr_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(vsr_tpu_torch.__path__, 'vsr_tpu_torch.')]\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    if not name.endswith('__main__'):\n"
+        "        importlib.import_module(name)\n"
+        "sys.argv = ['vsr_tpu_torch', '--help']\n"
+        "try:\n"
+        "    importlib.import_module('vsr_tpu_torch.__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0\n"
+        "assert 'vsr_tpu_torch.pipeline' in sys.modules and 'chip_smoke' in sys.modules\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'vsr_tpu'))\n"
+        "print(len(names), bad)\n"
         "raise SystemExit(1 if bad else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _port_sources():
+    pkg = os.path.join(REPO, "vsr_tpu_torch")
+    paths = [os.path.join(root, f) for root, _, files in os.walk(pkg)
+             for f in files if f.endswith(".py")]
+    return sorted(paths) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def test_port_sources_do_not_import_vsr_tpu():
+    """An ast scan: no `import vsr_tpu...` or `from vsr_tpu... import` in the
+    port or chip_smoke.py, other than of vsr_tpu_torch (nor of jax / flax)."""
+    import ast
+
+    def foreign(name):
+        return name.split(".")[0] in ("vsr_tpu", "jax", "flax")
+
+    found = []
+    sources = _port_sources()
+    assert len(sources) > 20
+    for path in sources:
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                found += [(path, a.name) for a in node.names if foreign(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+                if foreign(node.module):
+                    found.append((path, node.module))
+    assert not found, found

@@ -1,18 +1,17 @@
 """Band paste-back: the model-scale row slice a mask covers, and the masked
 blend of the inpainted band into the full frame.
 
-Copy of ``vsr_tpu/inpaint/paste.py:23-70`` (importing it would load jax
-through ``vsr_tpu/inpaint/__init__.py``).
+Copy of ``vsr_tpu/inpaint/paste.py:23-70``, on the port's own native host
+ops (which raise if they cannot be built, rather than falling back to cv2).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import cv2
 import numpy as np
 
-from vsr_tpu import native
+from vsr_tpu_torch import native
 
 
 def band_out_rows(mask01: np.ndarray, band, model_h: int) -> Tuple[int, int]:
@@ -38,7 +37,6 @@ def paste_band(
     comp: np.ndarray,
     band,
     mask01: np.ndarray,
-    width: int,
     model_h: int,
     out_rows: Optional[Tuple[int, int]] = None,
 ) -> None:
@@ -47,8 +45,8 @@ def paste_band(
     ``comp`` may be just the out_rows slice of the model-height band; it is
     placed back into a full-height buffer (zeros elsewhere — those pixels are
     outside the mask and its interpolation margin, so they are never blended
-    in). Uses the fused native resize+blend with a cv2 fallback. Modifies
-    ``frame`` in place."""
+    in). Uses the fused native resize+blend. Modifies ``frame`` (C-contiguous)
+    in place."""
     ymin, ymax, _, _ = band
     band_h = ymax - ymin
     if out_rows is not None and comp.shape[0] != model_h:
@@ -56,10 +54,4 @@ def paste_band(
         full[out_rows[0] : out_rows[1]] = comp
         comp = full
     mask_region = np.ascontiguousarray(mask01[ymin:ymax, :, 0])
-    if native.paste_band_blend(frame, comp, mask_region, ymin, band_h):
-        return
-    comp = cv2.resize(comp, (width, band_h)).astype(np.uint8)
-    region = mask01[ymin:ymax, :]
-    frame[ymin:ymax, :, :] = (
-        region * comp + (1 - region) * frame[ymin:ymax, :, :]
-    )
+    native.paste_band_blend(frame, np.ascontiguousarray(comp), mask_region, ymin, band_h)

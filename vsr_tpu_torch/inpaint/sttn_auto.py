@@ -11,18 +11,17 @@ from __future__ import annotations
 
 from typing import Callable, List, Optional, Union
 
-import cv2
 import numpy as np
 import torch
 
-from vsr_tpu import native
-from vsr_tpu.config import Config
-from vsr_tpu.masks.intervals import is_frame_number_in_ab_sections
-from vsr_tpu.masks.mask import binarize_mask
-from vsr_tpu.masks.solver import get_inpaint_area_by_mask
+from vsr_tpu_torch import native
+from vsr_tpu_torch.config import Config
 from vsr_tpu_torch.inpaint.engine import STTNWindowEngine
 from vsr_tpu_torch.inpaint.paste import band_out_rows, paste_band
 from vsr_tpu_torch.inpaint.weights import load_sttn_weights
+from vsr_tpu_torch.masks.intervals import is_frame_number_in_ab_sections
+from vsr_tpu_torch.masks.mask import binarize_mask
+from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
 from vsr_tpu_torch.models.sttn import STTN_AUTO_INPUT_SIZE, STTNGenerator
 from vsr_tpu_torch.utils.device import adaptive_clip_len, resolve_device
 
@@ -75,18 +74,9 @@ class STTNAutoInpainter:
     def _crop_and_resize(self, frame: np.ndarray, band,
                          out: Optional[np.ndarray] = None) -> np.ndarray:
         ymin, ymax, _, _ = band
-        res = native.crop_resize(
-            frame, ymin, ymax - ymin,
+        return native.crop_resize(
+            np.ascontiguousarray(frame), ymin, ymax - ymin,
             self.model_input_width, self.model_input_height, out=out)
-        if res is not None:
-            return res
-        crop = frame[ymin:ymax, :, :]
-        resized = cv2.resize(
-            crop, (self.model_input_width, self.model_input_height))
-        if out is not None:
-            out[...] = resized
-            return out
-        return resized
 
     def _stack_band(self, frames: List[np.ndarray], band) -> np.ndarray:
         """Crop+resize a chunk directly into one preallocated [T, h, w, 3] buffer."""
@@ -116,7 +106,7 @@ class STTNAutoInpainter:
             def drain(item):
                 start, handle = item
                 for j, comp in enumerate(engine.fetch(handle)):
-                    paste_band(out[start + j], comp, band, mask01, W,
+                    paste_band(out[start + j], comp, band, mask01,
                                self.model_input_height, out_rows)
 
             pending = []
@@ -190,7 +180,7 @@ class STTNAutoInpainter:
                 original = frame.copy() if preview_cb else None
                 if i in proc_map and comps_per_band:
                     for band, rows, comps in zip(bands, band_rows, comps_per_band):
-                        paste_band(frame, comps[proc_map[i]], band, mask01, W,
+                        paste_band(frame, comps[proc_map[i]], band, mask01,
                                    self.model_input_height, rows)
                 writer.write(frame)
                 n += 1

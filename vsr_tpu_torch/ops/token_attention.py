@@ -3,13 +3,19 @@ kernel (``csrc/token_attention.cu``) and its plain PyTorch version.
 
 Counterpart of ``vsr_tpu/ops/pallas_token_attention.py``. The TPU kernel's
 block-size snapping, (8, 128) padding and interpret mode have no place here:
-the CUDA kernel masks its ragged query and key edges itself.
+the CUDA kernels mask their ragged query and key edges themselves. bf16
+inputs take the TMA + wgmma route (a score kernel that writes p in bf16, then
+a p v kernel); its tensor maps need D % 8 == 0 and 16-byte aligned bases, so
+other inputs are first copied into an aligned buffer zero-padded in D (the
+scale stays 1/sqrt of the true D). fp32 inputs take the FMA route.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,6 +25,10 @@ import torch
 launches = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# csrc/token_attention.cu returns this plus the CUresult when a tensor map
+# cannot be made.
+TENSOR_MAP_ERROR = 10000
 
 
 def token_attention_reference(
@@ -66,6 +76,74 @@ def _check(q, k, v, key_bias) -> None:
                              f"{(B, k.shape[1])}, got {tuple(key_bias.shape)}")
 
 
+def _aligned(t: torch.Tensor, D_pad: int) -> torch.Tensor:
+    """t itself when the kernel's tensor maps can read it (D % 8 == 0 and a
+    16-byte aligned base), else a fresh copy zero-padded to D_pad columns."""
+    if t.shape[-1] == D_pad and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros(t.shape[:-1] + (D_pad,))
+    out[..., :t.shape[-1]] = t
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _tiles(lib) -> Tuple[int, int]:
+    """(query rows, keys) of the bf16 route's scratch tiles."""
+    rows, keys = ctypes.c_int(), ctypes.c_int()
+    lib.token_attention_tiles(ctypes.byref(rows), ctypes.byref(keys))
+    return rows.value, keys.value
+
+
+def _bf16_attention(lib, q, k, v, key_bias, scale: float) -> torch.Tensor:
+    """The bf16 route: score kernel, then p v kernel (csrc/token_attention.cu)."""
+    B, Nq, D = q.shape
+    Nk = k.shape[1]
+    D_pad = -(-D // 8) * 8
+    q, k, v = (_aligned(t, D_pad) for t in (q, k, v))
+    rows, keys = _tiles(lib)
+    k_tiles, nq_pad = -(-Nk // keys), -(-Nq // rows) * rows
+    out = torch.empty((B, Nq, D_pad), dtype=q.dtype, device=q.device)
+    # p = exp(s - m_t) per score tile, and each tile's row max m_t and sum l_t
+    p = torch.empty((B, Nq, k_tiles * keys), dtype=torch.bfloat16, device=q.device)
+    part = torch.empty((2, B, k_tiles, nq_pad), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device)
+    err = lib.token_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        key_bias.data_ptr() if key_bias is not None else None,
+        out.data_ptr(), p.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+        B, Nq, Nk, D_pad, scale, q.device.index, stream.cuda_stream)
+    _raise_on(err, q, k)
+    return out if D_pad == D else out[..., :D].contiguous()
+
+
+def _f32_attention(lib, q, k, v, key_bias, scale: float) -> torch.Tensor:
+    """The fp32 route: stats pass over key splits, then the FMA output pass."""
+    B, Nq, D = q.shape
+    Nk = k.shape[1]
+    splits = lib.token_attention_splits(B, Nq, Nk, q.device.index)
+    if splits <= 0:
+        raise RuntimeError(f"token attention: cudaError_t {-splits} reading the device")
+    out = torch.empty_like(q)
+    # per key split: each query row's softmax max and sum over that split's keys
+    stats = torch.empty((2, splits, B, Nq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device)
+    err = lib.token_attention_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        key_bias.data_ptr() if key_bias is not None else None,
+        out.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+        B, Nq, Nk, D, splits, scale, q.device.index, stream.cuda_stream)
+    _raise_on(err, q, k)
+    return out
+
+
+def _raise_on(err: int, q, k) -> None:
+    if err != 0:
+        what = (f"tensor map CUresult {err - TENSOR_MAP_ERROR}" if err >= TENSOR_MAP_ERROR
+                else f"cudaError_t {err}")
+        raise RuntimeError(f"token attention kernel launch failed: {what} "
+                           f"(q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)})")
+
+
 def flash_token_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -76,8 +154,9 @@ def flash_token_attention(
 
     q: [B, Nq, D], k/v: [B, Nk, D] in float32 or bfloat16, contiguous;
     key_bias: optional contiguous float32 [B, Nk]. Returns [B, Nq, D] in
-    q.dtype. A CUDA tensor runs the CUDA kernel (or raises); a CPU tensor
-    runs token_attention_reference.
+    q.dtype. A CUDA tensor runs the CUDA kernels (or raises); a CPU tensor
+    runs token_attention_reference. One call counts one launch, whatever
+    number of CUDA kernels it runs.
     """
     if q.device.type == "cpu":
         return token_attention_reference(q, k, v, key_bias)
@@ -87,23 +166,9 @@ def flash_token_attention(
     from vsr_tpu_torch.ops._build import get_lib
 
     lib = get_lib()
-    fn = lib.token_attention_bf16 if q.dtype == torch.bfloat16 else lib.token_attention_f32
-    B, Nq, D = q.shape
-    Nk = k.shape[1]
-    splits = lib.token_attention_splits(B, Nq, Nk, q.device.index)
-    if splits <= 0:
-        raise RuntimeError(f"token attention: cudaError_t {-splits} reading the device")
-    out = torch.empty_like(q)
-    # per key split: each query row's softmax max and sum over that split's keys
-    stats = torch.empty((2, splits, B, Nq), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             key_bias.data_ptr() if key_bias is not None else None,
-             out.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-             B, Nq, Nk, D, splits, 1.0 / math.sqrt(D), q.device.index, stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"token attention kernel launch failed: cudaError_t {err} "
-                           f"(q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)})")
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    route = _bf16_attention if q.dtype == torch.bfloat16 else _f32_attention
+    out = route(lib, q, k, v, key_bias, scale)
     global launches
     launches += 1
     return out

@@ -1,16 +1,32 @@
-"""Pipeline orchestrator on the port: ``vsr_tpu.pipeline.SubtitleRemover``
-with its sttn-auto inpainter built from ``vsr_tpu_torch`` on an explicit
-device. The modes that are not ported yet raise."""
+"""Pipeline orchestrator of the port: the video / sttn-auto part of
+``vsr_tpu/pipeline.py``'s SubtitleRemover (the reference's backend/main.py).
+
+Owns video I/O, runs the sttn-auto inpainter on an explicit device, tracks
+progress and remuxes the source audio into the output. The modes, picture
+mode and detection that are not ported yet raise, naming their ROADMAP.md
+item.
+"""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import os
+import tempfile
+import time
+from pathlib import Path
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
+import cv2
+import numpy as np
 import torch
 
-from vsr_tpu.config import Config, InpaintMode
-from vsr_tpu.pipeline import SubtitleRemover as _SubtitleRemover
+from vsr_tpu_torch.config import Config, InpaintMode
+from vsr_tpu_torch.i18n import tr
+from vsr_tpu_torch.io.audio import merge_audio_to_video
+from vsr_tpu_torch.io.video import FramePrefetcher, VideoReader, VideoWriter, read_video_info
+from vsr_tpu_torch.masks.mask import create_mask
 from vsr_tpu_torch.utils.device import resolve_device
+
+IMAGE_EXTENSIONS = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
 
 # ROADMAP.md Queue 1 item that ports each mode still missing (opencv mode
 # waits for detection, picture mode for detection and LaMa).
@@ -22,12 +38,16 @@ UNPORTED_MODES = {
 }
 
 
+def is_image_file(path: str) -> bool:
+    return os.path.splitext(str(path))[-1].lower() in IMAGE_EXTENSIONS
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to vsr_tpu_torch yet (ROADMAP.md Queue 1 item {item})")
 
 
-class SubtitleRemover(_SubtitleRemover):
+class SubtitleRemover:
     def __init__(
         self,
         video_path: str,
@@ -39,17 +59,75 @@ class SubtitleRemover(_SubtitleRemover):
         device: Union[str, torch.device] = "cuda",
     ):
         self.device = resolve_device(device)
-        super().__init__(video_path, output_path=output_path, sub_areas=sub_areas,
-                         config=config, checkpoint_dir=checkpoint_dir,
-                         gui_mode=gui_mode)
+        self.config = config or Config()
+        self.video_path = str(video_path)
+        self.gui_mode = gui_mode
+        self.checkpoint_dir = checkpoint_dir or os.environ.get("VSR_TPU_MODELS", "")
+        self.is_picture = is_image_file(self.video_path)
+        self.vd_name = Path(self.video_path).stem
+        self.ext = os.path.splitext(self.video_path)[-1]
 
-    def run(self) -> None:
-        mode = self.config.inpaint_mode
         if self.is_picture:
-            _not_ported("picture mode", "6 and 7")
-        if mode in UNPORTED_MODES:
-            _not_ported(f"inpaint mode {mode.value}", UNPORTED_MODES[mode])
-        super().run()
+            img = cv2.imread(self.video_path)
+            if img is None:
+                raise IOError(f"cannot read image: {self.video_path}")
+            self.frame_height, self.frame_width = img.shape[:2]
+            self.fps, self.frame_count = 0.0, 1
+        else:
+            info = read_video_info(self.video_path)
+            self.frame_width, self.frame_height = info.width, info.height
+            self.fps, self.frame_count = info.fps, info.frame_count
+        self.size = (self.frame_width, self.frame_height)
+        self.mask_size = (self.frame_height, self.frame_width)
+
+        # ymin, ymax, xmin, xmax boxes; empty -> full frame (ref main.py:338-340)
+        self.sub_areas: List[Tuple[int, int, int, int]] = list(sub_areas or [])
+        self.ab_sections = None
+
+        if output_path:
+            self.video_out_path = os.path.abspath(output_path)
+        elif self.is_picture:
+            pic_dir = os.path.join(os.path.dirname(self.video_path), "no_sub")
+            self.video_out_path = os.path.join(pic_dir, f"{self.vd_name}{self.ext}")
+        else:
+            self.video_out_path = os.path.abspath(
+                os.path.join(
+                    os.path.dirname(self.video_path), f"{self.vd_name}_no_sub.mp4"
+                )
+            )
+
+        self.progress_total = 0
+        self.is_finished = False
+        self.is_successful_merged = False
+        self.progress_listeners: List[Callable[[int, bool], None]] = []
+        self.preview_cb: Optional[Callable[[np.ndarray, np.ndarray], None]] = None
+        self._frames_done = 0
+
+        self._sttn_auto = None
+
+    # ---- observability ----
+    def append_output(self, *args) -> None:
+        print(*args)
+
+    def add_progress_listener(self, listener) -> None:
+        if listener not in self.progress_listeners:
+            self.progress_listeners.append(listener)
+
+    def _progress(self, increment: int) -> None:
+        self._frames_done += increment
+        if self.frame_count:
+            self.progress_total = int(100 * self._frames_done / self.frame_count)
+        for listener in self.progress_listeners:
+            try:
+                listener(self.progress_total, self.is_finished)
+            except Exception:
+                pass
+
+    # ---- lazy components ----
+    def _ckpt(self, name: str) -> Optional[str]:
+        if not self.checkpoint_dir:
+            return None
+        return os.path.join(self.checkpoint_dir, name)
 
     @property
     def sttn_auto_inpaint(self):
@@ -76,3 +154,93 @@ class SubtitleRemover(_SubtitleRemover):
     @property
     def detector(self):
         _not_ported("subtitle detection", "6")
+
+    # ---- modes ----
+    def _sttn_auto_mode(self, writer) -> None:
+        """Fixed-area temporal inpaint, no detection (ref main.py:247-258)."""
+        self.append_output(tr.text("Main", "ProcessingStartRemovingSubtitles"))
+        coords = [(xmin, xmax, ymin, ymax) for ymin, ymax, xmin, xmax in self.sub_areas]
+        mask = create_mask(
+            self.mask_size, coords, self.config.subtitle_area_deviation_pixel
+        )
+        reader = FramePrefetcher(VideoReader(self.video_path))
+        try:
+            self.sttn_auto_inpaint.process_video(
+                reader,
+                writer,
+                mask,
+                frame_count=self.frame_count,
+                size=self.size,
+                ab_sections=self.ab_sections,
+                progress_cb=self._progress,
+                preview_cb=self.preview_cb,
+            )
+        finally:
+            reader.release()
+
+    def _preview(self, original: np.ndarray, mask: Optional[np.ndarray],
+                 inpainted: np.ndarray) -> None:
+        """Emit a (mask-highlighted original, inpainted) preview pair, matching
+        the reference's update_preview_with_comp payload (main.py:244,331)."""
+        if self.preview_cb is None:
+            return
+        if mask is not None:
+            original = np.clip(
+                original + mask[:, :, np.newaxis] * 0.3, 0, 255
+            ).astype(np.uint8)
+        try:
+            self.preview_cb(original, inpainted)
+        except Exception:
+            pass
+
+    # ---- main entry ----
+    def run(self) -> None:
+        mode = self.config.inpaint_mode
+        if self.is_picture:
+            _not_ported("picture mode", "6 and 7")
+        if mode in UNPORTED_MODES:
+            _not_ported(f"inpaint mode {mode.value}", UNPORTED_MODES[mode])
+        start_time = time.time()
+        if not self.sub_areas:
+            self.append_output(tr.text("Main", "FullScreenProcessingNote"))
+            self.sub_areas.append((0, self.frame_height, 0, self.frame_width))
+        os.makedirs(os.path.dirname(self.video_out_path) or ".", exist_ok=True)
+
+        # log_model parity (ref main.py:403,462-470)
+        self.append_output(tr.text(
+            "Main", "SubtitleRemoverModel",
+            tr.text("InpaintMode", mode.name)))
+
+        tmp = tempfile.NamedTemporaryFile(suffix=".mp4", delete=False)
+        tmp.close()
+        writer = VideoWriter(
+            tmp.name, self.fps, self.size,
+            crf=self.config.encode_crf, preset=self.config.encode_preset,
+        )
+        try:
+            self._sttn_auto_mode(writer)
+        except BaseException:
+            # best-effort close; don't mask the original failure with an
+            # encoder-death error from release()
+            try:
+                writer.release()
+            except Exception:
+                pass
+            raise
+        else:
+            writer.release()
+        self.is_successful_merged = merge_audio_to_video(
+            self.video_path, tmp.name, self.video_out_path,
+            log=self.append_output,
+        )
+        try:
+            os.remove(tmp.name)
+        except OSError:
+            pass
+
+        self.is_finished = True
+        self.progress_total = 100
+        self.append_output(tr.text("Main", "FinishedProcessing",
+                                   self.video_out_path))
+        self.append_output(tr.text("Main", "ProcessingTime",
+                                   round(time.time() - start_time, 1)))
