@@ -12,8 +12,10 @@ non-zero and prints no result line):
   (b) kernel against plain version: flash_token_attention against
       token_attention_reference at the sttn-auto scales (5,3) (N=5120,
       D=960) and (10,5) (N=1536, D=3200), fp32 (TF32 off) and bf16, with a
-      bias masking some keys and one masking every key; max error, each
-      side's time, the bound (the larger of 4 N^2 D over the peak rate and
+      bias masking some keys and one masking every key; max error and, in
+      bf16, the error's norm against the output's, each held to a limit
+      below (kernel_faults.py shows the norm check catching faults that
+      the element-wise one misses); each side's time, the bound (the larger of 4 N^2 D over the peak rate and
       the bytes of q, k, v, bias and out over the memory rate), and the time
       of torch's scaled_dot_product_attention with the same float mask
       (library_ms, the yardstick; the port never calls it) with the backend
@@ -52,6 +54,13 @@ N_FRAMES = 100  # two chunks of clip_gap = 50
 MAIN_RUNS = 3
 SEED = 0
 F32_TOL, BF16_TOL = 2e-5, 2e-2  # |err| <= tol * (1 + |ref|), as tests/test_pallas_attention.py
+# bf16 also: ||got - ref|| / ||ref|| <= BF16_REL. The element-wise bound above
+# is about as large as a typical output here (~0.014 to 0.05 with randn
+# inputs, N = 1536 to 5120 keys), so a fault in one key tile's rescale in the
+# merge of the tiles' partial sums moves the outputs by a few 1e-3 and slips
+# under it. The norm of the error sees such a fault; a correct kernel stays
+# near bf16's rounding of its output (PERF.md has both).
+BF16_REL = 1e-2
 SCALES = {"(5,3)": (1, 5120, 960), "(10,5)": (1, 1536, 3200)}
 MAX_U8_DIFF = 2  # fp32: kernel route against plain route
 # bf16, inside the mask: the kernel rounds p to bf16 before p v, the plain
@@ -130,6 +139,25 @@ def bound_ms(B: int, N: int, D: int, dtype: str):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def compare(got, ref):
+    """max |got - ref|, ||got - ref|| / ||ref||, and the checks that failed:
+    finite values, within tol * (1 + |ref|) element-wise, and in bf16 within
+    BF16_REL in norm."""
+    bf16 = got.dtype == torch.bfloat16
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        return float("nan"), float("nan"), ["non-finite output"]
+    err = (got - ref).abs()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    tol = BF16_TOL if bf16 else F32_TOL
+    failed = []
+    if (err - tol * (1 + ref.abs())).max().item() > 0:
+        failed.append(f"|err| over {tol:g}*(1+|ref|)")
+    if bf16 and rel > BF16_REL:
+        failed.append(f"||err||/||ref|| over {BF16_REL:g}")
+    return err.max().item(), rel, failed
+
+
 def library_call(q, k, v, bias):
     """torch's scaled_dot_product_attention with the same float mask and
     1/sqrt(D) scale, on the first backend that takes these shapes."""
@@ -200,23 +228,18 @@ def phase_b(card):
         some = torch.where(torch.rand((B, N), generator=gen, device="cuda") < 0.3,
                            -1e9, 0.0).float()
         every = torch.full((B, N), -1e9, device="cuda")
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype)[6:]
             qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
             for bias_name, bias in (("some keys masked", some), ("every key masked", every)):
-                got = flash_token_attention(qd, kd, vd, bias).float()
-                ref = token_attention_reference(qd, kd, vd, bias).float()
-                torch.cuda.synchronize()
-                if not torch.isfinite(got).all():
-                    raise AssertionError(f"[b] {scale} {dtype} {bias_name}: non-finite output")
-                err = (got - ref).abs()
-                excess = (err - tol * (1 + ref.abs())).max().item()
-                max_err = err.max().item()
+                got = flash_token_attention(qd, kd, vd, bias)
+                ref = token_attention_reference(qd, kd, vd, bias)
+                max_err, rel, failed = compare(got, ref)
                 worst = max(worst, max_err)
                 log(f"[b] {scale} B={B} N={N} D={D} {name} {bias_name}: "
-                    f"max |err| {max_err:.3e} (tol {tol:g}*(1+|ref|))")
-                if excess > 0:
-                    raise AssertionError(f"[b] {scale} {dtype} {bias_name}: error over tolerance")
+                    f"max |err| {max_err:.3e}, ||err||/||ref|| {rel:.3e}")
+                if failed:
+                    raise AssertionError(f"[b] {scale} {dtype} {bias_name}: " + ", ".join(failed))
             backend, library, lib_out = library_call(qd, kd, vd, some)
             lib_err = (lib_out.float() - token_attention_reference(qd, kd, vd, some).float()
                        ).abs().max().item()

@@ -21,6 +21,10 @@ from vsr_tpu_torch.ops import token_attention as ta
 NEG_INF = -1e9
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# bf16 also ||got - want|| / ||want|| <= BF16_REL: the element-wise bound is
+# about as large as a typical output, so it misses a fault in the merge of
+# one key tile's partial sums (chip_smoke.py, PERF.md).
+BF16_REL = 1e-2
 
 
 @pytest.fixture
@@ -112,16 +116,16 @@ def test_kernel_matches_reference(dtype, shape, n_valid, cuda_device):
     assert ta.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = ta.token_attention_reference(q, k, v, bias)
-    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), **tol)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **F32_TOL)
+    else:
+        _assert_bf16_close(got, want)
 
 
 @pytest.mark.cuda
 def test_kernel_unaligned_bf16_inputs(cuda_device):
-    """bf16 tiles are staged with 16-byte vector loads only when D % 8 == 0
-    and the base pointers are 16-byte aligned; views that start 2 bytes in
-    take the element-wise path and give the same result."""
+    """The tensor maps need 16-byte aligned bases: views that start 2 bytes
+    in go through the wrapper's aligned copy and give the same result."""
     q, k, v, bias = (None if t is None else t.to(cuda_device)
                      for t in _inputs(7, (1, 96, 256), n_valid=50))
     flat = [torch.empty(1 + t.numel(), dtype=torch.bfloat16, device=cuda_device)
@@ -133,10 +137,8 @@ def test_kernel_unaligned_bf16_inputs(cuda_device):
     got = ta.flash_token_attention(uq, uk, uv, bias)
     want = ta.flash_token_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), bias)
     ref = ta.token_attention_reference(uq, uk, uv, bias)
-    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
-                               **BF16_TOL)
-    np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(),
-                               **BF16_TOL)
+    _assert_bf16_close(got, want)
+    _assert_bf16_close(got, ref)
 
 
 @pytest.mark.cuda
@@ -176,6 +178,7 @@ def _assert_bf16_close(got, want):
     got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, **BF16_TOL)
+    assert np.linalg.norm(got - want) <= BF16_REL * np.linalg.norm(want)
 
 
 @pytest.mark.cuda

@@ -141,6 +141,15 @@ def test_cli_unported_modes_exit_with_roadmap_item(argv, item, capsys):
     assert item in capsys.readouterr().err
 
 
+def test_picture_input_raises_with_roadmap_item(tmp_path):
+    """Picture mode is not ported: an image path raises before anything is
+    read or a device is asked for."""
+    from vsr_tpu_torch.pipeline import SubtitleRemover
+
+    with pytest.raises(NotImplementedError, match="picture mode.*item 6 and 7"):
+        SubtitleRemover(str(tmp_path / "missing.png"), device="cpu")
+
+
 def test_cuda_without_gpu_raises():
     import torch
     from vsr_tpu_torch.utils.device import resolve_device
@@ -152,14 +161,14 @@ def test_cuda_without_gpu_raises():
 
 
 def test_port_never_imports_jax():
-    """Every module of vsr_tpu_torch, and chip_smoke, imported in a fresh
-    process and `python -m vsr_tpu_torch --help` run there: nothing of jax,
-    flax or the JAX package vsr_tpu is loaded."""
+    """Every module of vsr_tpu_torch, chip_smoke and kernel_faults imported
+    in a fresh process and `python -m vsr_tpu_torch --help` run there:
+    nothing of jax, flax or the JAX package vsr_tpu is loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vsr_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(vsr_tpu_torch.__path__, 'vsr_tpu_torch.')]\n"
-        "for name in names + ['chip_smoke']:\n"
+        "for name in names + ['chip_smoke', 'kernel_faults']:\n"
         "    if not name.endswith('__main__'):\n"
         "        importlib.import_module(name)\n"
         "sys.argv = ['vsr_tpu_torch', '--help']\n"
@@ -182,12 +191,12 @@ def _port_sources():
     pkg = os.path.join(REPO, "vsr_tpu_torch")
     paths = [os.path.join(root, f) for root, _, files in os.walk(pkg)
              for f in files if f.endswith(".py")]
-    return sorted(paths) + [os.path.join(REPO, "chip_smoke.py")]
+    return sorted(paths) + [os.path.join(REPO, f) for f in ("chip_smoke.py", "kernel_faults.py")]
 
 
 def test_port_sources_do_not_import_vsr_tpu():
     """An ast scan: no `import vsr_tpu...` or `from vsr_tpu... import` in the
-    port or chip_smoke.py, other than of vsr_tpu_torch (nor of jax / flax)."""
+    port, chip_smoke.py or kernel_faults.py, other than of vsr_tpu_torch (nor of jax / flax)."""
     import ast
 
     def foreign(name):

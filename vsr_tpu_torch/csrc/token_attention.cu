@@ -29,7 +29,8 @@
 //     the row's partials (m = max m_t, l = sum l_t 2^(m_t - m)), streams P
 //     and V tiles by TMA, scales each P fragment by 2^(m_t - m) / l of its
 //     key tile in registers, and runs p v on wgmma (m64n160k16, A from
-//     registers, V read MN-major through the transpose flag). Two sets of
+//     registers, V read MN-major through the transpose flag from five
+//     [64 keys][32 columns] tiles, 64-byte swizzle). Two sets of
 //     fragments alternate, so one 64-key stage is loaded and scaled while
 //     the previous stage's products run. The bf16 output goes out through
 //     shared memory by TMA stores.
@@ -84,8 +85,11 @@ constexpr int kDepth = 64;       // one ring stage of D (score) or of keys (p v)
 // Output columns of D per p v block: 960 = 6 x 160 and 3200 = 20 x 160, so
 // both sttn-auto widths split into 240 blocks without a ragged column tile.
 constexpr int kCols = 160;
-constexpr int kVBoxes = 3;       // [64 keys][64 columns] V tiles a stage covers (192 >= kCols)
-constexpr int kOutBox = 32;      // columns of one output TMA store (64-byte swizzle)
+// Columns of one V tile and of one output TMA store: [64 rows][32 bf16], the
+// 64-byte swizzle. 32 divides kCols, so a stage loads the block's 160 V
+// columns and no more.
+constexpr int kVBox = 32;
+constexpr int kOutBox = 32;
 constexpr int kConsumerWarps = 8;  // p v: two warpgroups of 64 rows each
 constexpr int kScoreWarps = kScoreRows / 16;  // score: one warpgroup per 64 rows
 constexpr int kScoreThreads = kScoreWarps * 32 + 32;  // + one producer warp
@@ -96,7 +100,8 @@ constexpr int kScoreStages = 4;
 constexpr int kPvStages = 5;
 constexpr uint32_t kBox = 64 * 128;  // bytes of one [64 rows][64 bf16] swizzled tile
 constexpr uint32_t kScoreStage = (kScoreRows / 64 + 2) * kBox;  // Q [256][64] + K [128][64]
-constexpr uint32_t kPvStage = (2 + kVBoxes) * kBox;  // P [128][64] + V [64 keys][192 columns]
+constexpr uint32_t kVTile = kDepth * kVBox * 2;     // one [64 keys][32 bf16] V tile
+constexpr uint32_t kPvStage = 2 * kBox + kCols / kVBox * kVTile;  // P [128][64] + V [64][160]
 constexpr uint32_t kOutStage = 64 * kOutBox * 2;       // one [64 rows][32 bf16] output tile
 constexpr size_t kScoreSmem = 1024 + kScoreStages * kScoreStage + 16 * kScoreStages;
 constexpr size_t kPvSmem = 1024 + kPvStages * kPvStage + 16 * kPvStages;
@@ -105,7 +110,8 @@ static_assert(kScoreRows / 64 * 2 * kBox <= kScoreStages * kScoreStage,
               "P staging fits in the score ring");
 static_assert(2 * (kCols / kOutBox) * kOutStage <= kPvStages * kPvStage,
               "output staging fits in the p v ring");
-static_assert(kCols % kOutBox == 0 && kCols <= 64 * kVBoxes, "p v column tiling");
+static_assert(kCols % kOutBox == 0 && kCols % kVBox == 0, "p v column tiling");
+static_assert(kPvStage % 1024 == 0, "p v stages keep the 128-byte swizzle's alignment");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -192,11 +198,13 @@ __device__ __forceinline__ uint32_t swizzled64(int row, int chunk) {
   return row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4);
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle. lbo / sbo in bytes.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory descriptor. lbo / sbo in bytes; layout 1 is the
+// 128-byte swizzle, 2 the 64-byte one.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                               uint64_t layout = 1) {
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -241,7 +249,8 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, 
 }
 
 // d (+)= a b for a 64x16 A tile in registers (the m16n8k16 A fragment of
-// each warp's 16 rows) and a 16x160 B tile read MN-major from shared memory.
+// each warp's 16 rows) and a 16x160 B tile read MN-major from shared memory
+// (64-byte swizzle).
 __device__ __forceinline__ void wgmma_m64n160k16_rs(float (&d)[80], const uint32_t (&a)[4],
                                                      uint64_t b, int accumulate) {
   asm volatile(
@@ -432,8 +441,8 @@ pv_kernel(const __grid_constant__ CUtensorMap tm_p, const __grid_constant__ CUte
         tma_load(dst, &tm_p, full + 8 * s, i * kDepth, q0, b);
         tma_load(dst + kBox, &tm_p, full + 8 * s, i * kDepth, q0 + 64, b);
 #pragma unroll
-        for (int c = 0; c < kVBoxes; ++c)
-          tma_load(dst + (2 + c) * kBox, &tm_v, full + 8 * s, c0 + 64 * c, i * kDepth, b);
+        for (int c = 0; c < kCols / kVBox; ++c)
+          tma_load(dst + 2 * kBox + c * kVTile, &tm_v, full + 8 * s, c0 + kVBox * c, i * kDepth, b);
       }
     }
     return;
@@ -493,8 +502,9 @@ pv_kernel(const __grid_constant__ CUtensorMap tm_p, const __grid_constant__ CUte
     }
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kDepth / 16; ++j)  // 16 keys = 16 rows of 128 bytes of each V tile
-      wgmma_m64n160k16_rs(acc, a[j], wgmma_desc(vb + 16 * 128 * j, kBox, 1024), i > 0 || j > 0);
+    for (int j = 0; j < kDepth / 16; ++j)  // 16 keys = 16 rows of 64 bytes of each V tile
+      wgmma_m64n160k16_rs(acc, a[j], wgmma_desc(vb + 16 * 64 * j, kVTile, 512, 2),
+                          i > 0 || j > 0);
     wgmma_commit();
     wgmma_wait<1>();
     if (i > 0) {
@@ -589,7 +599,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* bias, 
   int res;
   if ((res = make_map(&tm_q, q, D, Nq, B, kDepth, kScoreRows)) ||
       (res = make_map(&tm_k, k, D, Nk, B, kDepth, kTile)) ||
-      (res = make_map(&tm_v, v, D, Nk, B, 64, kDepth)) ||
+      (res = make_map(&tm_v, v, D, Nk, B, kVBox, kDepth, CU_TENSOR_MAP_SWIZZLE_64B)) ||
       (res = make_map(&tm_p, p, nk_pad, Nq, B, kDepth, 64)) ||
       (res = make_map(&tm_o, out, D, Nq, B, kOutBox, 64, CU_TENSOR_MAP_SWIZZLE_64B)))
     return kTensorMapError + res;

@@ -15,7 +15,6 @@ import time
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
-import cv2
 import numpy as np
 import torch
 
@@ -55,46 +54,30 @@ class SubtitleRemover:
         sub_areas: Optional[Sequence[Tuple[int, int, int, int]]] = None,
         config: Optional[Config] = None,
         checkpoint_dir: Optional[str] = None,
-        gui_mode: bool = False,
         device: Union[str, torch.device] = "cuda",
     ):
+        self.video_path = str(video_path)
+        if is_image_file(self.video_path):
+            _not_ported("picture mode", "6 and 7")
         self.device = resolve_device(device)
         self.config = config or Config()
-        self.video_path = str(video_path)
-        self.gui_mode = gui_mode
         self.checkpoint_dir = checkpoint_dir or os.environ.get("VSR_TPU_MODELS", "")
-        self.is_picture = is_image_file(self.video_path)
-        self.vd_name = Path(self.video_path).stem
-        self.ext = os.path.splitext(self.video_path)[-1]
 
-        if self.is_picture:
-            img = cv2.imread(self.video_path)
-            if img is None:
-                raise IOError(f"cannot read image: {self.video_path}")
-            self.frame_height, self.frame_width = img.shape[:2]
-            self.fps, self.frame_count = 0.0, 1
-        else:
-            info = read_video_info(self.video_path)
-            self.frame_width, self.frame_height = info.width, info.height
-            self.fps, self.frame_count = info.fps, info.frame_count
+        info = read_video_info(self.video_path)
+        self.frame_width, self.frame_height = info.width, info.height
+        self.fps, self.frame_count = info.fps, info.frame_count
         self.size = (self.frame_width, self.frame_height)
         self.mask_size = (self.frame_height, self.frame_width)
 
         # ymin, ymax, xmin, xmax boxes; empty -> full frame (ref main.py:338-340)
         self.sub_areas: List[Tuple[int, int, int, int]] = list(sub_areas or [])
-        self.ab_sections = None
 
         if output_path:
             self.video_out_path = os.path.abspath(output_path)
-        elif self.is_picture:
-            pic_dir = os.path.join(os.path.dirname(self.video_path), "no_sub")
-            self.video_out_path = os.path.join(pic_dir, f"{self.vd_name}{self.ext}")
         else:
-            self.video_out_path = os.path.abspath(
-                os.path.join(
-                    os.path.dirname(self.video_path), f"{self.vd_name}_no_sub.mp4"
-                )
-            )
+            self.video_out_path = os.path.abspath(os.path.join(
+                os.path.dirname(self.video_path),
+                f"{Path(self.video_path).stem}_no_sub.mp4"))
 
         self.progress_total = 0
         self.is_finished = False
@@ -171,33 +154,15 @@ class SubtitleRemover:
                 mask,
                 frame_count=self.frame_count,
                 size=self.size,
-                ab_sections=self.ab_sections,
                 progress_cb=self._progress,
                 preview_cb=self.preview_cb,
             )
         finally:
             reader.release()
 
-    def _preview(self, original: np.ndarray, mask: Optional[np.ndarray],
-                 inpainted: np.ndarray) -> None:
-        """Emit a (mask-highlighted original, inpainted) preview pair, matching
-        the reference's update_preview_with_comp payload (main.py:244,331)."""
-        if self.preview_cb is None:
-            return
-        if mask is not None:
-            original = np.clip(
-                original + mask[:, :, np.newaxis] * 0.3, 0, 255
-            ).astype(np.uint8)
-        try:
-            self.preview_cb(original, inpainted)
-        except Exception:
-            pass
-
     # ---- main entry ----
     def run(self) -> None:
         mode = self.config.inpaint_mode
-        if self.is_picture:
-            _not_ported("picture mode", "6 and 7")
         if mode in UNPORTED_MODES:
             _not_ported(f"inpaint mode {mode.value}", UNPORTED_MODES[mode])
         start_time = time.time()
