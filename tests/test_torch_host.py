@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's host modules (config, masks,
-native host ops, i18n, cli parser), held against ``vsr_tpu``'s on the same
-inputs, made from a seed with numpy."""
+interval algebra, detection pre- and post-processing, native host ops,
+i18n, cli parser), held against ``vsr_tpu``'s on the same inputs, made from
+a seed with numpy."""
 
 import dataclasses
 
@@ -11,12 +12,16 @@ from vsr_tpu import cli as jax_cli
 from vsr_tpu import i18n as jax_i18n
 from vsr_tpu import native as jax_native
 from vsr_tpu.config import Config as JaxConfig
+from vsr_tpu.detect import boxes as jax_boxes
+from vsr_tpu.detect import postprocess as jax_postprocess
+from vsr_tpu.detect import preprocess as jax_preprocess
 from vsr_tpu.masks import intervals as jax_intervals
 from vsr_tpu.masks import mask as jax_mask
 from vsr_tpu.masks import solver as jax_solver
 from vsr_tpu.version import __version__ as jax_version
 from vsr_tpu_torch import cli, i18n, native
 from vsr_tpu_torch.config import Config, InpaintMode
+from vsr_tpu_torch.detect import boxes, postprocess, preprocess
 from vsr_tpu_torch.masks import intervals, mask, solver
 from vsr_tpu_torch.version import __version__
 
@@ -67,6 +72,89 @@ def test_ab_sections(seed):
         for frame_no in rng.integers(0, 600, 50):
             assert (intervals.is_frame_number_in_ab_sections(int(frame_no), sec)
                     == jax_intervals.is_frame_number_in_ab_sections(int(frame_no), sec))
+
+
+def _ranges(rng, n):
+    """n (start, end) ranges over frames 1..400, some single-frame, some
+    touching or overlapping."""
+    starts = np.sort(rng.integers(1, 400, n))
+    return [(int(s), int(s + rng.choice([0, 0, 1, 5, 30]))) for s in starts]
+
+
+def _box_dict(rng, n_frames):
+    """{frame: [boxes]} with runs of repeated, jittered and changed boxes."""
+    out, boxes = {}, _boxes(rng, 1080, 1920, 2)
+    for f in sorted(set(int(x) for x in rng.integers(1, 300, n_frames))):
+        r = rng.random()
+        if r < 0.2:
+            boxes = _boxes(rng, 1080, 1920, int(rng.integers(1, 4)))
+        elif r < 0.5:
+            boxes = [tuple(int(v + rng.integers(-25, 26)) for v in b) for b in boxes]
+        out[f] = list(boxes)
+    return out
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_interval_algebra(seed):
+    rng = np.random.default_rng(500 + seed)
+    for n in (0, 1, 7, 40):
+        ranges = _ranges(rng, n)
+        back, fwd = int(rng.integers(0, 12)), int(rng.integers(0, 12))
+        assert (intervals.expand_frame_ranges(ranges, back, fwd)
+                == jax_intervals.expand_frame_ranges(ranges, back, fwd))
+        for target in (1, 4, 10, 25):
+            assert (intervals.filter_and_merge_intervals(ranges, target)
+                    == jax_intervals.filter_and_merge_intervals(ranges, target))
+        data = list(range(int(rng.integers(0, 120))))
+        size = int(rng.integers(1, 60))
+        assert (list(intervals.batch_generator(data, size))
+                == list(jax_intervals.batch_generator(data, size)))
+        subs = _box_dict(rng, n * 5)
+        for fn in ("find_continuous_ranges", "find_continuous_ranges_with_same_mask"):
+            assert getattr(intervals, fn)(subs) == getattr(jax_intervals, fn)(subs)
+        tol = (int(rng.integers(0, 30)), int(rng.integers(0, 30)))
+        assert intervals.unify_regions(subs, *tol) == jax_intervals.unify_regions(subs, *tol)
+        for a, b in zip(_boxes(rng, 1080, 1920, 8), _boxes(rng, 1080, 1920, 8)):
+            assert intervals.are_similar(a, b, *tol) == jax_intervals.are_similar(a, b, *tol)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_detect_preprocess_bit_identical(seed):
+    rng = np.random.default_rng(600 + seed)
+    h, w = int(rng.integers(24, 1200)), int(rng.integers(24, 2000))
+    frame = rng.integers(0, 256, (h, w, 3), np.uint8)
+    long_side = int(rng.choice([960, 640, 320]))
+    assert preprocess.det_resize_shape(h, w, long_side) == jax_preprocess.det_resize_shape(
+        h, w, long_side)
+    assert preprocess.scale_factors(h, w, long_side) == jax_preprocess.scale_factors(
+        h, w, long_side)
+    got = preprocess.preprocess_frame(frame, long_side)
+    want = jax_preprocess.preprocess_frame(frame, long_side)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_detect_postprocess_and_boxes_bit_identical(seed):
+    """DBPostProcess on a map with text-like bars at several confidences,
+    noise and specks, into a destination of another size; then the quads to
+    boxes."""
+    rng = np.random.default_rng(700 + seed)
+    h, w = 32 * int(rng.integers(2, 12)), 32 * int(rng.integers(2, 16))
+    prob = rng.random((h, w)).astype(np.float32) * 0.28
+    prob[rng.random((h, w)) < 0.002] = 0.9  # specks
+    for _ in range(int(rng.integers(2, 10))):
+        y, x = int(rng.integers(0, h - 4)), int(rng.integers(0, w - 4))
+        bar = (slice(y, y + int(rng.integers(3, 30))), slice(x, x + int(rng.integers(3, 120))))
+        prob[bar] = rng.uniform(0.45, 1) - 0.1 * rng.random(prob[bar].shape)
+    dest = (int(rng.integers(50, 1100)), int(rng.integers(50, 2000)))
+    got = postprocess.db_postprocess(prob, dest)
+    want = jax_postprocess.db_postprocess(prob, dest)
+    assert len(got) == len(want)
+    for g, q in zip(got, want):
+        np.testing.assert_array_equal(g, q)
+    quads = [q.tolist() for q in want]
+    assert boxes.get_coordinates(quads) == jax_boxes.get_coordinates(quads)
 
 
 @pytest.mark.parametrize("seed", SEEDS)

@@ -228,3 +228,44 @@ def test_kernel_widths_through_the_aligned_copy(D, cuda_device):
     got = ta.flash_token_attention(q, k, v, bias)
     assert got.shape == (1, 150, D) and got.is_contiguous()
     _assert_bf16_close(got, ta.token_attention_reference(q, k, v, bias))
+
+
+def _det_bias(B, L, n_valid, seed):
+    """The sttn-det (9,5) key bias as ops/patch_attention.py builds it: each
+    frame is 12 x 12 = 144 tokens; frames from n_valid on are padded slots
+    (-1e9 for all their tokens), and tokens whose 9x5 patch lies mostly in
+    the hole (rows 7-9, columns 2-10 of the frame's grid, plus a few drawn
+    from the seed) are gated (-1e9), so keys that are both carry -2e9."""
+    rng = np.random.default_rng(seed)
+    gated = np.zeros((12, 12), bool)
+    gated[7:10, 2:11] = True
+    gated |= rng.random((12, 12)) < 0.05
+    frame_bias = np.where(np.arange(L) < n_valid, 0.0, NEG_INF)[:, None]
+    bias = frame_bias + np.where(gated.reshape(-1), NEG_INF, 0.0)[None, :]
+    return torch.from_numpy(np.broadcast_to(bias.reshape(-1), (B, L * 144))
+                            .astype(np.float32).copy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,n_valid", [(16, 13), (12, 9)], ids=["N=2304", "N=1728"])
+def test_kernel_sttn_det_scale(dtype, L, n_valid, cuda_device):
+    """STTN-det's (9,5) scale: D = 2880, N = L*144 (2304 for a 50-frame
+    chunk; 1728, not a multiple of the 256-row score tile, for a short
+    range's chunk), with the patch-gating bias on top of padded frames."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    N, D = L * 144, 2880
+    rng = np.random.default_rng(15)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, N, D)).astype(np.float32))
+               .to(cuda_device, dtype) for _ in range(3))
+    bias = _det_bias(1, L, n_valid, 16).to(cuda_device)
+    assert (bias <= 2 * NEG_INF).any() and (bias == 0).any()
+    before = ta.launches
+    got = ta.flash_token_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert ta.launches == before + 1
+    want = ta.token_attention_reference(q, k, v, bias)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **F32_TOL)
+    else:
+        _assert_bf16_close(got, want)

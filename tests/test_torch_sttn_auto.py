@@ -129,7 +129,7 @@ def test_cli_end_to_end(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,item", [
     (["-i", "x.mp4", "--inpaint-mode", "lama"], "item 7"),
-    (["-i", "x.mp4", "--inpaint-mode", "sttn-det"], "item 5"),
+    (["-i", "x.mp4", "--inpaint-mode", "propainter"], "item 8"),
     (["--gui"], "item 11"),
 ])
 def test_cli_unported_modes_exit_with_roadmap_item(argv, item, capsys):
@@ -142,11 +142,11 @@ def test_cli_unported_modes_exit_with_roadmap_item(argv, item, capsys):
 
 
 def test_picture_input_raises_with_roadmap_item(tmp_path):
-    """Picture mode is not ported: an image path raises before anything is
-    read or a device is asked for."""
+    """Picture mode (detection + LaMa) is not ported: an image path raises
+    before anything is read or a device is asked for."""
     from vsr_tpu_torch.pipeline import SubtitleRemover
 
-    with pytest.raises(NotImplementedError, match="picture mode.*item 6 and 7"):
+    with pytest.raises(NotImplementedError, match="picture mode.*item 7"):
         SubtitleRemover(str(tmp_path / "missing.png"), device="cpu")
 
 

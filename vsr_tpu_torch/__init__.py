@@ -7,13 +7,16 @@ first use. The port imports neither jax nor anything of ``vsr_tpu``: it keeps
 its own copies of the host modules it needs.
 
 Package map (each module mirrors its ``vsr_tpu`` namesake):
-  cli, pipeline  — command line and orchestrator (sttn-auto)
+  cli, pipeline  — command line and orchestrator (sttn-auto, sttn-det, opencv)
   config, i18n, version — settings (same JSON as vsr_tpu's), strings
-  io/, masks/, native/ — video I/O, mask and band helpers, g++-built host ops
-  inpaint/       — sttn-auto inpainter, window engine, weights, paste-back
+  io/, masks/, native/ — video I/O, mask, band and interval helpers,
+                   g++-built host ops
+  detect/        — PP-OCRv5 server DBNet and the video subtitle detector
+  inpaint/       — sttn-auto and sttn-det inpainters, window engine, OpenCV
+                   mode, weights, paste-back
   models/sttn    — the STTN generator as nn.Modules
   ops/           — patch attention, token-attention kernel wrapper, upsample
-  convert/       — JAX-package params -> torch state dict
+  convert/       — JAX-package params -> torch state dicts
   utils/device   — device selection and memory-adaptive chunk length
 """
 

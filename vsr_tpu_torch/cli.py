@@ -1,11 +1,12 @@
 """Command line of the port:
 
     python -m vsr_tpu_torch -i in.mp4 [-o out.mp4] [-c YMIN YMAX XMIN XMAX ...]
-                            [--inpaint-mode sttn-auto] [--models DIR] [--device cuda]
+                            [--inpaint-mode sttn-auto|sttn-det|opencv]
+                            [--models DIR] [--device cuda]
 
 The flags and defaults are those of ``vsr_tpu.cli`` plus ``--device``. Modes
-and flags that are not ported yet exit with an error naming their ROADMAP.md
-item.
+(lama, propainter) and flags that are not ported yet exit with an error
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations

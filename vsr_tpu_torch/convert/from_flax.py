@@ -1,7 +1,9 @@
-"""JAX-package STTN params -> the port's state dict.
+"""JAX-package params -> the port's state dicts.
 
-Inverts the key map of ``vsr_tpu/convert/torch_sttn.py`` (copied here: that
-module imports jax) and transposes conv kernels HWIO -> OIHW.
+STTN: inverts the key map of ``vsr_tpu/convert/torch_sttn.py`` (copied here:
+that module imports jax) and transposes conv kernels HWIO -> OIHW.
+DBNet: the port's detector modules carry the flax names, so the map is
+structural (see dbnet_state_dict_from_flax).
 """
 
 from __future__ import annotations
@@ -70,4 +72,45 @@ def sttn_state_dict_from_flax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor
             state[f"{name}.bias"] = torch.from_numpy(arr.copy())
         else:
             raise KeyError(f"unrecognized STTN param: {path}")
+    return state
+
+
+# flax leaf -> torch entry, per variable collection
+_DBNET_LEAVES = {
+    "params": {"kernel": "weight", "bias": "bias", "scale": "weight"},
+    "batch_stats": {"mean": "running_mean", "var": "running_var"},
+}
+
+
+def dbnet_state_dict_from_flax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax DBNet variables (the '/'-joined flat dict that
+    ``vsr_tpu.convert.params_io.save_params`` writes, or the nested dict with
+    'params' and 'batch_stats') -> the port's DBNet state dict.
+
+    Module paths map by name ('/' -> '.'). Conv kernels HWIO -> OIHW; a
+    ``nn.ConvTranspose(transpose_kernel=True)`` kernel (kh, kw, O, I) ->
+    ConvTranspose2d (I, O, kh, kw), the same axis permutation (the inverse
+    of vsr_tpu/convert/mapping.py's convtranspose2d rule). BatchNorm scale,
+    bias, mean and var -> weight, bias, running_mean, running_var (both use
+    eps 1e-5). The training-only ``head/thresh`` branch is dropped: the
+    port's head has no such branch. Any other unknown key raises.
+    """
+    state: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(flat).items():
+        collection, rest = path.split("/", 1)
+        if collection not in _DBNET_LEAVES:
+            raise KeyError(f"unrecognized DBNet variable collection: {path}")
+        module, leaf = rest.rsplit("/", 1)
+        if module.startswith("head/thresh/"):
+            continue
+        if leaf not in _DBNET_LEAVES[collection]:
+            raise KeyError(f"unrecognized DBNet param: {path}")
+        arr = np.array(value, dtype=np.float32)
+        if leaf == "kernel":
+            arr = arr.transpose(3, 2, 0, 1)
+        name = module.replace("/", ".")
+        state[f"{name}.{_DBNET_LEAVES[collection][leaf]}"] = torch.from_numpy(
+            np.ascontiguousarray(arr))
+        if leaf == "mean":
+            state[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return state

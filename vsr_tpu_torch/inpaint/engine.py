@@ -9,6 +9,12 @@ overlapping windows per frame in the reference's order (first window
 truncates to uint8, later ones blend 0.5/0.5, final truncation). Only the
 composited uint8 rows that the mask needs cross back to the host.
 
+The ``masked`` engine (STTN-det) also takes a {0,1} hole mask per frame: the
+encoder sees the frames with the hole zeroed, the transformer's key gating
+sees the mask at feature scale (nearest, every 4th pixel), and each window's
+prediction replaces only hole pixels of the model-size source frame before
+the overlap average.
+
 ``dispatch``/``fetch`` keep the work asynchronous: dispatch copies the chunk
 from pinned host memory, enqueues the compute and the copy back into a
 pinned output buffer on the current stream and records an event; fetch
@@ -116,6 +122,7 @@ class STTNWindowEngine:
         stride: int = 5,
         ref_length: int = 10,
         window_batch: int = 0,
+        masked: bool = False,
         out_rows: Optional[Tuple[int, int]] = None,
     ):
         self.model = model
@@ -124,6 +131,7 @@ class STTNWindowEngine:
         self.input_hw = input_hw
         self.stride = stride
         self.ref_length = ref_length
+        self.masked = masked  # det variant: masked encoder input + attention
         # out_rows: (r0, r1) rows of the composited band to return; the
         # caller picks them with margin for the paste's interpolation.
         self.out_rows = out_rows
@@ -133,13 +141,21 @@ class STTNWindowEngine:
 
     # ---- device program ----
     @torch.inference_mode()
-    def _chunk_step(self, frames_u8, idx, valid, fwin, fslot, fcount):
+    def _chunk_step(self, frames_u8, idx, valid, fwin, fslot, fcount, masks=None):
         """frames_u8: [T, H, W, 3] BGR uint8; idx/valid: [Wn, L];
-        fwin/fslot/fcount: composite index (build_composite_index).
+        fwin/fslot/fcount: composite index (build_composite_index);
+        masks (masked engine): [T, H, W] {0,1} uint8 hole masks.
 
         Returns the composited [T, rows, W, 3] BGR uint8 (rows = out_rows).
         """
         x = frames_u8.flip(-1).float() / 255.0 * 2.0 - 1.0  # RGB in [-1, 1]
+        feat_masks = None
+        if masks is not None:
+            masks = masks.float()
+            # hole pixels leave the encoder input (ref sttn_det_inpaint.py:143)
+            # and the nearest-1/4 mask gates the attention keys
+            x = x * (1.0 - masks[..., None])
+            feat_masks = masks[:, ::4, ::4]
         feats = self.model.encode(x)  # [T, h, w, C]
         preds = []
         wb = self.window_batch
@@ -147,7 +163,8 @@ class STTNWindowEngine:
             widx, wvalid = idx[w0 : w0 + wb], valid[w0 : w0 + wb]
             # invalid slots carry clamped-index (finite) features; the key
             # mask keeps them out of attention and they are never composited
-            out = self.model.transform(feats[widx], wvalid)
+            wmask = feat_masks[widx] if feat_masks is not None else None
+            out = self.model.transform(feats[widx], wvalid, wmask)
             nb = out[:, : self.n_max]  # neighbour slots only
             n, h, w, c = nb.shape[1:]
             dec = self.model.decode(nb.reshape(-1, h, w, c))
@@ -161,6 +178,11 @@ class STTNWindowEngine:
 
         # per-frame contributions in window order: [T, K, rows, W, 3]
         contrib = preds_u8[fwin, fslot].float()
+        if masks is not None:
+            # the prediction replaces only hole pixels of the source, before
+            # the overlap average (ref sttn_det_inpaint.py:168)
+            m = masks[:, None, r0:r1, :, None]
+            contrib = contrib * m + frames_u8[:, None, r0:r1].float() * (1.0 - m)
         comp = contrib[:, 0]
         for k in range(1, MAX_OVERLAPS):
             take = (fcount > k)[:, None, None, None]
@@ -176,10 +198,20 @@ class STTNWindowEngine:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def dispatch(self, frames: np.ndarray):
+    def _pinned(self, a: np.ndarray, pin: bool) -> torch.Tensor:
+        """a [T', ...] uint8 in a (pinned) [clip_len, ...] buffer, the tail
+        padded by repeating a[-1]."""
+        buf = torch.empty((self.clip_len, *a.shape[1:]), dtype=torch.uint8, pin_memory=pin)
+        view = buf.numpy()
+        view[:len(a)] = a
+        view[len(a):] = a[-1]
+        return buf
+
+    def dispatch(self, frames: np.ndarray, masks: Optional[np.ndarray] = None):
         """Enqueue one chunk; returns an opaque handle for fetch().
 
-        frames: [T', H, W, 3] BGR uint8 with T' <= clip_len (model input size).
+        frames: [T', H, W, 3] BGR uint8 with T' <= clip_len (model input size);
+        masks (masked engine only): [T', H, W] {0,1} hole masks.
         """
         t_valid = len(frames)
         if not 0 < t_valid <= self.clip_len:
@@ -187,12 +219,16 @@ class STTNWindowEngine:
         h, w = self.input_hw
         if frames.shape[1:] != (h, w, 3):
             raise ValueError(f"frames {frames.shape[1:]} are not model size {(h, w, 3)}")
+        if (masks is not None) != self.masked:
+            raise ValueError("a masked engine takes hole masks, an unmasked one none")
+        if masks is not None and masks.shape != (t_valid, h, w):
+            raise ValueError(f"masks {masks.shape} are not {(t_valid, h, w)}")
         cuda = self.device.type == "cuda"
 
-        host_in = torch.empty((self.clip_len, h, w, 3), dtype=torch.uint8, pin_memory=cuda)
-        host_np = host_in.numpy()
-        host_np[:t_valid] = frames
-        host_np[t_valid:] = frames[-1]
+        host_in = self._pinned(frames, cuda)
+        host_masks = None
+        if masks is not None:
+            host_masks = self._pinned((masks > 0).astype(np.uint8), cuda)
 
         idx, valid, _ = build_window_index(
             t_valid, self.clip_len, self.stride, self.ref_length)
@@ -202,14 +238,19 @@ class STTNWindowEngine:
                                               fslot.astype(np.int64), fcount)]
 
         frames_dev = host_in.to(self.device, non_blocking=True)
-        out = self._chunk_step(frames_dev, *index)
+        masks_dev = None
+        if host_masks is not None:
+            masks_dev = host_masks.to(self.device, non_blocking=True)
+        out = self._chunk_step(frames_dev, *index, masks=masks_dev)
         host_out = torch.empty(out.shape, dtype=torch.uint8, pin_memory=cuda)
         host_out.copy_(out, non_blocking=True)
         done = None
         if cuda:
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
-        return host_out, done, t_valid, host_in
+        # the pinned inputs stay referenced until fetch: their copies may
+        # still be in flight
+        return host_out, done, t_valid, (host_in, host_masks)
 
     def fetch(self, handle) -> np.ndarray:
         """Wait for a dispatched chunk; returns [T', rows, W, 3] BGR uint8."""

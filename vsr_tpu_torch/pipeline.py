@@ -1,10 +1,14 @@
-"""Pipeline orchestrator of the port: the video / sttn-auto part of
+"""Pipeline orchestrator of the port: the video part of
 ``vsr_tpu/pipeline.py``'s SubtitleRemover (the reference's backend/main.py).
 
-Owns video I/O, runs the sttn-auto inpainter on an explicit device, tracks
-progress and remuxes the source audio into the output. The modes, picture
-mode and detection that are not ported yet raise, naming their ROADMAP.md
-item.
+Owns video I/O, runs the detector and the inpainters on an explicit device,
+tracks progress and remuxes the source audio into the output. Modes:
+
+* STTN_AUTO — fixed-area streaming temporal inpaint (ref main.py:247-258)
+* STTN_DET / OPENCV — detection-driven batch inpaint (ref main.py:260-333)
+
+LaMa, ProPainter and picture mode are not ported yet and raise, naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -22,16 +26,20 @@ from vsr_tpu_torch.config import Config, InpaintMode
 from vsr_tpu_torch.i18n import tr
 from vsr_tpu_torch.io.audio import merge_audio_to_video
 from vsr_tpu_torch.io.video import FramePrefetcher, VideoReader, VideoWriter, read_video_info
+from vsr_tpu_torch.masks.intervals import (
+    batch_generator,
+    expand_frame_ranges,
+    filter_and_merge_intervals,
+    find_continuous_ranges_with_same_mask,
+)
 from vsr_tpu_torch.masks.mask import create_mask
 from vsr_tpu_torch.utils.device import resolve_device
 
 IMAGE_EXTENSIONS = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
 
-# ROADMAP.md Queue 1 item that ports each mode still missing (opencv mode
-# waits for detection, picture mode for detection and LaMa).
+# ROADMAP.md Queue 1 item that ports each mode still missing (picture mode
+# waits for LaMa).
 UNPORTED_MODES = {
-    InpaintMode.STTN_DET: "5",
-    InpaintMode.OPENCV: "6",
     InpaintMode.LAMA: "7",
     InpaintMode.PROPAINTER: "8",
 }
@@ -58,7 +66,7 @@ class SubtitleRemover:
     ):
         self.video_path = str(video_path)
         if is_image_file(self.video_path):
-            _not_ported("picture mode", "6 and 7")
+            _not_ported("picture mode", "7")
         self.device = resolve_device(device)
         self.config = config or Config()
         self.checkpoint_dir = checkpoint_dir or os.environ.get("VSR_TPU_MODELS", "")
@@ -87,6 +95,8 @@ class SubtitleRemover:
         self._frames_done = 0
 
         self._sttn_auto = None
+        self._sttn_det = None
+        self._detector = None
 
     # ---- observability ----
     def append_output(self, *args) -> None:
@@ -124,7 +134,13 @@ class SubtitleRemover:
 
     @property
     def sttn_det_inpaint(self):
-        _not_ported("sttn-det inpainting", "5")
+        if self._sttn_det is None:
+            from vsr_tpu_torch.inpaint.sttn_det import STTNDetInpainter
+
+            self._sttn_det = STTNDetInpainter(
+                checkpoint_path=self._ckpt("sttn_det.npz"), config=self.config,
+                device=self.device)
+        return self._sttn_det
 
     @property
     def lama_inpaint(self):
@@ -136,7 +152,13 @@ class SubtitleRemover:
 
     @property
     def detector(self):
-        _not_ported("subtitle detection", "6")
+        if self._detector is None:
+            from vsr_tpu_torch.detect.detector import SubtitleDetector
+
+            self._detector = SubtitleDetector(
+                self.video_path, sub_areas=self.sub_areas, config=self.config,
+                checkpoint_path=self._ckpt("dbnet.npz"), device=self.device)
+        return self._detector
 
     # ---- modes ----
     def _sttn_auto_mode(self, writer) -> None:
@@ -160,6 +182,91 @@ class SubtitleRemover:
         finally:
             reader.release()
 
+    def _preview(self, original: np.ndarray, mask: Optional[np.ndarray],
+                 inpainted: np.ndarray) -> None:
+        """Emit a (mask-highlighted original, inpainted) preview pair, the
+        reference's update_preview_with_comp payload (main.py:244,331)."""
+        if self.preview_cb is None:
+            return
+        if mask is not None:
+            original = np.clip(
+                original + mask[:, :, np.newaxis] * 0.3, 0, 255
+            ).astype(np.uint8)
+        try:
+            self.preview_cb(original, inpainted)
+        except Exception:
+            pass
+
+    def _video_inpaint_mode(self, writer, model) -> None:
+        """Detection-driven batch inpaint (ref main.py:260-333)."""
+        self.append_output(tr.text("Main", "ProcessingStartFindingSubtitles"))
+        sub_list = self.detector.find_subtitle_frame_no(sub_remover=self)
+        self.append_output(tr.text("Main", "FinishedFindingSubtitles"))
+        if not sub_list:
+            raise RuntimeError(
+                tr.text("Main", "NoSubtitleDetected", self.video_path))
+        ranges = find_continuous_ranges_with_same_mask(sub_list)
+        ranges = expand_frame_ranges(
+            ranges,
+            self.config.subtitle_timeline_backward_frame_count,
+            self.config.subtitle_timeline_forward_frame_count,
+        )
+        ranges = filter_and_merge_intervals(
+            ranges, self.config.sttn_reference_length
+        )
+        start_end = {s: min(e, self.frame_count) for s, e in ranges}
+
+        self.append_output(tr.text("Main", "ProcessingStartRemovingSubtitles"))
+        reader = FramePrefetcher(VideoReader(self.video_path))
+        try:
+            index = 0
+            while True:
+                ok, frame = reader.read()
+                if not ok:
+                    break
+                index += 1
+                if index not in start_end:
+                    writer.write(frame)
+                    self._progress(1)
+                    self._preview(frame, None, frame)
+                    continue
+                end_index = start_end[index]
+                frames = [frame]
+                while index < end_index:
+                    ok, frame = reader.read()
+                    if not ok:
+                        break
+                    index += 1
+                    frames.append(frame)
+                # union of detected boxes over the range, dropping
+                # taller-than-wide false positives (ref main.py:309-319)
+                coords = self._collect_mask_coords(
+                    sub_list, index - len(frames) + 1, end_index
+                )
+                mask = create_mask(
+                    self.mask_size, coords, self.config.subtitle_area_deviation_pixel
+                )
+                for batch in batch_generator(frames, self.config.get_sttn_max_load_num()):
+                    inpainted = model(list(batch), mask)
+                    for src, out_frame in zip(batch, inpainted):
+                        writer.write(out_frame)
+                        self._preview(src, mask, out_frame)
+                    self._progress(len(batch))
+        finally:
+            reader.release()
+
+    def _collect_mask_coords(self, sub_list, start: int, end: int):
+        coords = []
+        for i in range(start, end):
+            if i in sub_list:
+                for area in sub_list[i]:
+                    xmin, xmax, ymin, ymax = area
+                    if (ymax - ymin) - (xmax - xmin) > self.config.subtitle_yx_axis_difference_pixel:
+                        continue
+                    if area not in coords:
+                        coords.append(area)
+        return coords
+
     # ---- main entry ----
     def run(self) -> None:
         mode = self.config.inpaint_mode
@@ -175,6 +282,10 @@ class SubtitleRemover:
         self.append_output(tr.text(
             "Main", "SubtitleRemoverModel",
             tr.text("InpaintMode", mode.name)))
+        if mode != InpaintMode.STTN_AUTO:
+            self.append_output(tr.text(
+                "Main", "SubtitleDetectionModel",
+                tr.text("SubtitleDetectMode", self.config.subtitle_detect_mode.name)))
 
         tmp = tempfile.NamedTemporaryFile(suffix=".mp4", delete=False)
         tmp.close()
@@ -183,7 +294,16 @@ class SubtitleRemover:
             crf=self.config.encode_crf, preset=self.config.encode_preset,
         )
         try:
-            self._sttn_auto_mode(writer)
+            if mode == InpaintMode.STTN_AUTO:
+                self._sttn_auto_mode(writer)
+            elif mode == InpaintMode.STTN_DET:
+                self._video_inpaint_mode(writer, self.sttn_det_inpaint)
+            elif mode == InpaintMode.OPENCV:
+                from vsr_tpu_torch.inpaint.opencv import OpenCVInpainter
+
+                self._video_inpaint_mode(writer, OpenCVInpainter())
+            else:
+                raise ValueError(f"inpaint mode not implemented: {mode}")
         except BaseException:
             # best-effort close; don't mask the original failure with an
             # encoder-death error from release()
