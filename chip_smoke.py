@@ -51,13 +51,36 @@ non-zero and prints no result line):
       output checked;
   (g) the det route check: one 50-frame chunk through STTNDetInpainter with
       the kernel and with token_attention_reference, fp32 within 2 uint8,
-      bf16 within phase d's max and mean limits.
+      bf16 within phase d's max and mean limits;
+  (h) the LaMa band path: LamaInpainter.__call__ in bf16 on the 100 frames
+      of (c) under the same mask, big-lama at full width (ngf 64, 18 FFC
+      blocks) with seeded random weights, one warm run and three timed
+      runs (frames in == frames out, outside the mask bit-identical,
+      inside changed, no hand kernel launched: the path is cuDNN + cuFFT);
+      the band geometry, frames/s, one band batch's device time and its
+      convolutions' TFLOP (forward hooks) against the bf16 peak. With
+      --profile, a torch.profiler table in
+      chiprun_out/chip_smoke_profile_lama.txt and the host time split into
+      crop + staging, H2D, forward dispatch, fetch and paste;
+  (i) LaMa on the card against the CPU: the full-width generator on one
+      256x512 input, card fp32 (TF32 off) against CPU fp32 on the same
+      weights, max |err| <= LAMA_CPU_TOL on the sigmoid output; then one
+      band batch of (h) in bf16 against fp32 on the card, uint8 inside the
+      mask within the limits below;
+  (j) picture mode: SubtitleRemover(png, device="cuda").run() on frame 15
+      of (e)'s mp4 saved as a 1920x1080 PNG, the detector replaced by a
+      fixed box, once cold (the remover builds its LaMa) and once warm;
+      the file is written at the same size and changed inside the mask;
+  (k) the mobile detector: (e) again with subtitle_detect_mode
+      PP_OCRv5_MOBILE (PP-LCNetV3 0.75 + RSEFPN 96 + the small head), its
+      random weights tamed (see LCNET_BRANCH_SCALE).
 
 Phase b also runs the kernel at STTN-det's (9,5) scale (N = 2304, and 1728
 for a short range's chunk; D = 2880) with, besides the two biases above,
 the det variant's patch gating on top of padded frames.
 
-The line before last is a JSON summary of the kernels; the last line is
+Phases h-j tame LaMa's random weights (see tame_lama). The line before
+last is a JSON summary of the kernels and of each path; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -111,6 +134,25 @@ BF16_MAX_U8_DIFF, BF16_MEAN_U8_DIFF = 8, 0.5
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 MEM_BYTES_PER_S = 3.35e12
 OUT_DIR = "chiprun_out"
+# LaMa: the card's fp32 (TF32 off) sigmoid output against the CPU's, the
+# repo's activation-parity bound (ROADMAP.md)
+LAMA_CPU_TOL = 1e-3
+# one band batch in bf16 against fp32 on the card, uint8 inside the mask:
+# measured max 1, mean 0.084 on an H100 at 700 W (PERF.md); 4x the max and ~6x
+# the mean leave room for other cards and still catch a wrong layer (which
+# moves the mean by tens of uint8)
+LAMA_BF16_MAX_U8, LAMA_BF16_MEAN_U8 = 4, 0.5
+# random big-lama weights grow the 18 blocks' residual stream to std ~440
+# and saturate the sigmoid (96% of outputs at 0 or 1, measured on the CPU at
+# 256x512); each block's second BatchNorm scaled by this keeps it near 1
+LAMA_RESIDUAL_SCALE = 0.3
+PICTURE_FRAME = 15  # a frame of the mp4 with a subtitle line
+# random PP-LCNetV3 weights sum five or six unit-scale branches a layer and
+# grow the backbone's activations to ~1e4: the map is noise (94% of it over
+# the 0.3 threshold), and post-processing its contours took 240 ms a frame
+# on the card's host. Each branch's BatchNorm scaled by this keeps them
+# near 1, as tests/test_torch_detect.py does.
+LCNET_BRANCH_SCALE = 0.4
 
 
 def log(msg: str) -> None:
@@ -538,23 +580,28 @@ def subtitle_video(path, n):
         writer.release()
 
 
-def phase_e(card, video):
-    """Detection at full width (see the module docstring)."""
-    from vsr_tpu_torch.config import Config
+def phase_e(card, video, phase="e", mode="PP_OCRv5_SERVER"):
+    """Detection at full width (see the module docstring); phase k runs it
+    with the mobile preset."""
+    from vsr_tpu_torch.config import Config, SubtitleDetectMode
     from vsr_tpu_torch.detect.dbnet import DBNet
     from vsr_tpu_torch.detect.detector import SubtitleDetector
     from vsr_tpu_torch.detect.postprocess import db_postprocess
     from vsr_tpu_torch.detect.preprocess import preprocess_frame
     from vsr_tpu_torch.io.video import VideoReader
 
-    det = SubtitleDetector(video, config=Config(), device="cuda")
+    mode = SubtitleDetectMode(mode)
+    preset = "server" if mode == SubtitleDetectMode.PP_OCRv5_SERVER else "mobile"
+    det = SubtitleDetector(video, config=Config(subtitle_detect_mode=mode), device="cuda")
+    if preset == "mobile":
+        tame_lcnet(det._ensure_weights())
     (_, dt_warm) = timed(det.find_subtitle_frame_no)
     found, dt = timed(det.find_subtitle_frame_no)
     sampled = len(range(0, N_FRAMES, det.sample_step))
-    log(f"[e] find_subtitle_frame_no, {N_FRAMES} frames {W}x{H} at {DET_FPS} fps, 1 in "
+    log(f"[{phase}] {preset} DBNet: find_subtitle_frame_no, {N_FRAMES} frames {W}x{H} at {DET_FPS} fps, 1 in "
         f"{det.sample_step} sampled ({sampled} frames, batches of {det.batch_size}): "
         f"{dt:.3f} s ({sampled / dt:.2f} sampled frames/s; warm call {dt_warm:.3f} s) on {card}")
-    log(f"[e] frames with boxes: {len(found)}; boxes: "
+    log(f"[{phase}] frames with boxes: {len(found)}; boxes: "
         f"{sorted({b for boxes in found.values() for b in boxes})[:8]}")
 
     reader = VideoReader(video)
@@ -570,24 +617,20 @@ def phase_e(card, video):
             tf32 = det.model(torch.from_numpy(batch).cuda()).cpu().numpy()
     finally:
         torch.backends.cudnn.allow_tf32 = saved
-    cpu_model = DBNet().eval()
+    cpu_model = DBNet(preset=preset).eval()
     cpu_model.load_state_dict({k: v.cpu() for k, v in det.model.state_dict().items()})
-    flops = []
-    hooks = [m.register_forward_hook(lambda m, i, o: flops.append(conv_flops(m, i[0], o)))
-             for m in cpu_model.modules() if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
     with torch.inference_mode():
-        want, dt_cpu = timed(lambda: cpu_model(torch.from_numpy(batch)).numpy())
-    for h in hooks:
-        h.remove()
-    gflop = sum(flops) / 1e9
+        flops, (want, dt_cpu) = count_flops(
+            cpu_model, lambda: timed(lambda: cpu_model(torch.from_numpy(batch)).numpy()))
+    gflop = flops / 1e9
     err, err_tf32 = float(np.abs(got - want).max()), float(np.abs(tf32 - want).max())
     boxes = [q.astype(int).tolist() for q in db_postprocess(got[0, ..., 0], frame.shape[:2])]
-    log(f"[e] frame 15 at {batch.shape[1]}x{batch.shape[2]}: probability map in "
+    log(f"[{phase}] frame 15 at {batch.shape[1]}x{batch.shape[2]}: probability map in "
         f"[{got.min():.4f}, {got.max():.4f}], max |card - CPU| {err:.3e} (TF32 off, limit "
         f"{DET_TOL:g}), {err_tf32:.3e} with TF32 on (not used); CPU forward {dt_cpu:.2f} s; "
         f"boxes {boxes}")
     if not np.isfinite(got).all() or err > DET_TOL:
-        raise AssertionError(f"[e] detector on the card vs CPU: max |err| {err} > {DET_TOL}")
+        raise AssertionError(f"[{phase}] detector on the card vs CPU: max |err| {err} > {DET_TOL}")
 
     x = torch.from_numpy(np.repeat(batch, det.batch_size, axis=0)).cuda()
     with torch.inference_mode():
@@ -597,7 +640,7 @@ def phase_e(card, video):
         fwd_ms = cuda_ms(lambda: det.model(x), 5)
     post_ms = 1e3 * timed(lambda: [db_postprocess(got[0, ..., 0], frame.shape[:2])
                                    for _ in range(10)])[1] / 10
-    log(f"[e] DBNet forward, batch {det.batch_size} at {batch.shape[1]}x{batch.shape[2]}, "
+    log(f"[{phase}] {preset} DBNet forward, batch {det.batch_size} at {batch.shape[1]}x{batch.shape[2]}, "
         f"fp32 TF32 off: {fwd_ms:.2f} ms device time ({fwd_ms / det.batch_size:.2f} ms a "
         f"frame; {fwd_tf32_ms:.2f} ms with TF32 on, not used); {gflop:.1f} GFLOP a frame "
         f"in its convolutions, {gflop * det.batch_size / fwd_ms:.1f} TFLOP/s; db_postprocess "
@@ -606,6 +649,30 @@ def phase_e(card, video):
             "max_abs_err_vs_cpu_tf32": err_tf32, "forward_ms_batch8": fwd_ms,
             "forward_ms_batch8_tf32": fwd_tf32_ms, "gflop_per_frame": gflop,
             "postprocess_ms": post_ms, "frames_with_boxes": len(found)}
+
+
+def tame_lcnet(model):
+    """Scale each LearnableRepLayer branch's BatchNorm by LCNET_BRANCH_SCALE
+    (see there), in place."""
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if re.search(r"(conv_kxk_\d|conv_1x1)\.bn$|\.identity$", name):
+                m.weight.mul_(LCNET_BRANCH_SCALE)
+    return model
+
+
+def count_flops(model, fn):
+    """(FLOPs of the convolutions that fn() runs through model, fn()'s
+    result), counted with forward hooks."""
+    flops = []
+    hooks = [m.register_forward_hook(lambda m, i, o: flops.append(conv_flops(m, i[0], o)))
+             for m in model.modules() if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
+    try:
+        out = fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(flops), out
 
 
 def conv_flops(m, x, out) -> int:
@@ -617,10 +684,14 @@ def conv_flops(m, x, out) -> int:
 
 
 class FixedDetector:
-    """A fixed frame -> boxes map in place of the DBNet detector."""
+    """A fixed frame -> boxes map in place of the DBNet detector; a picture
+    gets frame PICTURE_FRAME's boxes."""
 
     def find_subtitle_frame_no(self, sub_remover=None):
         return {f: [box] for frames, box in SUB_FRAMES.items() for f in frames}
+
+    def detect_subtitle(self, img):
+        return self.find_subtitle_frame_no()[PICTURE_FRAME]
 
 
 def expected_det_launches(model, chunks_clips, stride):
@@ -714,6 +785,177 @@ def phase_g(frames, mask):
     return check_routes("g", make_run, mask)
 
 
+def tame_lama(model):
+    """Scale each residual block's second BatchNorm by LAMA_RESIDUAL_SCALE
+    (see there), in place: seeded random weights all the same, whose
+    output is not saturated, so the comparisons of phase i see numbers."""
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if re.fullmatch(r"block\d+\.conv2\.bn_[lg]", name):
+                m.weight.mul_(LAMA_RESIDUAL_SCALE)
+    return model
+
+
+def lama_inpainter(dtype):
+    from vsr_tpu_torch.config import Config
+    from vsr_tpu_torch.inpaint.lama import LamaInpainter
+
+    inpainter = LamaInpainter(config=Config(compute_dtype=dtype), device="cuda")
+    tame_lama(inpainter.model)
+    return inpainter
+
+
+def band_batch(inpainter, frames, mask):
+    """The first band's geometry and its first batch of crops and mask, on
+    the card, as LamaInpainter._inpaint_band stages them."""
+    from vsr_tpu_torch.inpaint import lama
+    from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
+
+    m3 = mask[:, :, None]
+    ymin, ymax = get_inpaint_area_by_mask(W, H, int(W * 3 / 16), m3)[0][:2]
+    r0, out_h = inpainter.band_geometry(m3, ymin, ymax)
+    crops = [lama.pad_to_modulo(f[ymin:ymax]) for f in frames[:lama.BAND_BATCH]]
+    d_img = inpainter._stage(crops, lama.BAND_BATCH).cuda()
+    d_mask = inpainter._stage([lama.pad_to_modulo(m3[ymin:ymax])], 1).cuda()
+    return (ymin, ymax, r0, out_h), d_img, d_mask
+
+
+def phase_h(card, frames, mask, profile):
+    from vsr_tpu_torch.inpaint import lama
+    from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
+    from vsr_tpu_torch.ops import token_attention
+
+    inpainter = lama_inpainter("bfloat16")
+    m3 = mask[:, :, None]
+    bands = [(b[0], b[1], *inpainter.band_geometry(m3, b[0], b[1]))
+             for b in get_inpaint_area_by_mask(W, H, int(W * 3 / 16), m3)]
+    batches = -(-len(frames) // lama.BAND_BATCH)
+    log(f"[h] LaMa band path: bands (ymin, ymax, r0, out_h) {bands}, batches of "
+        f"{lama.BAND_BATCH} ({batches} a band for {len(frames)} frames, the tail padded)")
+    _, dt = timed(lambda: inpainter(frames[:lama.BAND_BATCH], mask))
+    log(f"[h] warm pass: {lama.BAND_BATCH} frames in {dt:.2f} s")
+    fps = []
+    for run in range(MAIN_RUNS):
+        token_attention.launches = 0
+        out, dt = timed(lambda: inpainter(frames, mask))
+        if token_attention.launches:
+            raise AssertionError(f"[h] the LaMa path launched token attention "
+                                 f"{token_attention.launches} times")
+        if len(out) != len(frames):
+            raise AssertionError(f"[h] {len(out)} frames out of {len(frames)}")
+        check_frames(frames, out, mask, "h")
+        fps.append(len(out) / dt)
+        log(f"[h] lama {W}x{H} bf16 run {run + 1}: {fps[-1]:.2f} frames/s "
+            f"({dt:.3f} s for {len(out)} frames; hand-kernel launches 0) on {card}")
+
+    (ymin, ymax, r0, out_h), d_img, d_mask = band_batch(inpainter, frames, mask)
+    B = lama.BAND_BATCH
+    batch_ms = cuda_ms(lambda: inpainter._band_forward(d_img, d_mask, r0, out_h, W), 5)
+    full_ms = cuda_ms(lambda: inpainter._forward(d_img, d_mask), 5)
+    with torch.inference_mode():
+        flops, _ = count_flops(inpainter.model,
+                               lambda: inpainter._band_forward(d_img, d_mask, r0, out_h, W))
+        full_flops, _ = count_flops(inpainter.model, lambda: inpainter._forward(d_img, d_mask))
+    tflops = flops / batch_ms / 1e9
+    device_s = len(bands) * batches * batch_ms / 1e3
+    wall_s = len(frames) / max(fps)
+    log(f"[h] one band batch ({B} x {ymax - ymin}x{W}, out_rows ({r0}, {out_h})): "
+        f"{batch_ms:.2f} ms device time ({batch_ms / B:.3f} ms a frame); the convolutions "
+        f"{flops / B / 1e12:.3f} TFLOP a frame, {tflops:.1f} TFLOP/s = "
+        f"{100 * tflops * 1e12 / PEAK_FLOPS['bfloat16']:.1f}% of the bf16 peak; without "
+        f"out_rows {full_ms:.2f} ms, {full_flops / B / 1e12:.3f} TFLOP a frame; on {card}")
+    log(f"[h] {len(frames)} frames: device ~{device_s:.3f} s ({len(bands) * batches} batches) "
+        f"of the fastest run's {wall_s:.3f} s wall; the rest is host time not hidden "
+        f"behind the device")
+    if profile:
+        profile_run(lambda: inpainter(frames, mask), len(frames), card, "h",
+                    "chip_smoke_profile_lama.txt")
+        host_breakdown(lambda: inpainter(frames, mask), len(frames), [
+            (inpainter, "_stage", "crop + staging (pinned)"), (inpainter, "_upload", "H2D"),
+            (inpainter, "_band_forward", "forward dispatch"),
+            (inpainter, "_wait", "fetch (device wait + D2H)"), (inpainter, "_paste", "paste")],
+            "h")
+    return inpainter, {"fps": fps, "bands": bands, "batch": B, "band_batch_ms": batch_ms,
+                       "band_batch_ms_without_out_rows": full_ms,
+                       "tflop_per_frame": flops / B / 1e12,
+                       "tflop_per_frame_without_out_rows": full_flops / B / 1e12,
+                       "tflops": tflops, "device_s_estimate": device_s}
+
+
+def phase_i(card, frames, mask, bf16):
+    from vsr_tpu_torch.models.lama import LamaGenerator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = lama_inpainter("float32")
+    cpu_model = LamaGenerator().eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in f32.model.state_dict().items()})
+    rng = np.random.default_rng(SEED)
+    img = rng.uniform(0, 1, (1, 256, 512, 3)).astype(np.float32)
+    msk = np.zeros((1, 256, 512, 1), np.float32)
+    msk[:, 180:230, 60:450] = 1.0
+    with torch.inference_mode():
+        got = f32.model(torch.from_numpy(img).cuda(), torch.from_numpy(msk).cuda()).cpu().numpy()
+        want, dt_cpu = timed(lambda: cpu_model(torch.from_numpy(img), torch.from_numpy(msk)).numpy())
+    err = float(np.abs(got - want).max())
+    log(f"[i] LaMa full width at 256x512, card fp32 (TF32 off) vs CPU fp32: max |err| "
+        f"{err:.3e} (limit {LAMA_CPU_TOL:g}), output in [{want.min():.4f}, {want.max():.4f}] "
+        f"std {want.std():.4f}; CPU forward {dt_cpu:.2f} s")
+    if not np.isfinite(got).all() or err > LAMA_CPU_TOL:
+        raise AssertionError(f"[i] LaMa card vs CPU: max |err| {err} > {LAMA_CPU_TOL}")
+
+    (ymin, ymax, r0, out_h), d_img, d_mask = band_batch(bf16, frames, mask)
+    comps = [inp._band_forward(d_img, d_mask, r0, out_h, W).cpu().numpy().astype(int)
+             for inp in (bf16, f32)]
+    diff = np.abs(comps[0] - comps[1])
+    hole = np.broadcast_to(mask[None, ymin + r0:ymin + r0 + out_h, :, None] > 0, diff.shape)
+    u8_max, u8_mean = int(diff[hole].max()), float(diff[hole].mean())
+    log(f"[i] one band batch, bf16 vs fp32 on the card: uint8 inside the mask max {u8_max} "
+        f"(limit {LAMA_BF16_MAX_U8}), mean {u8_mean:.4f} (limit {LAMA_BF16_MEAN_U8}); "
+        f"outside max {int(diff[~hole].max())}")
+    if diff[~hole].any() or u8_max > LAMA_BF16_MAX_U8 or u8_mean > LAMA_BF16_MEAN_U8:
+        raise AssertionError(f"[i] LaMa bf16 vs fp32: max {u8_max}, mean {u8_mean:.4f}, "
+                             f"outside the mask {int(diff[~hole].max())}")
+    return {"max_abs_err": err, "limit": LAMA_CPU_TOL, "bf16_vs_fp32_u8_max": u8_max,
+            "bf16_vs_fp32_u8_mean": u8_mean}
+
+
+def phase_j(card, video, tmp, inpainter):
+    import cv2
+
+    from vsr_tpu_torch.config import Config
+    from vsr_tpu_torch.io.video import VideoReader
+    from vsr_tpu_torch.masks.mask import create_mask
+    from vsr_tpu_torch.pipeline import SubtitleRemover
+
+    reader = VideoReader(video)
+    for _ in range(PICTURE_FRAME):
+        _, frame = reader.read()
+    reader.release()
+    picture = os.path.join(tmp, "picture.png")
+    cv2.imwrite(picture, frame)
+    box = FixedDetector().detect_subtitle(frame)
+    hole = create_mask((H, W), box, Config().subtitle_area_deviation_pixel) > 0
+    times = {}
+    for run, lama in (("cold", None), ("warm", inpainter)):
+        out_path = os.path.join(tmp, f"picture_{run}.png")
+        remover = SubtitleRemover(picture, output_path=out_path,
+                                  config=Config(compute_dtype="bfloat16"), device="cuda")
+        remover._detector = FixedDetector()
+        remover._lama = lama
+        _, times[run] = timed(remover.run)
+        back = cv2.imread(out_path)
+        if back is None or back.shape != frame.shape:
+            raise AssertionError(f"[j] {run}: wrote {None if back is None else back.shape}")
+        changed = float(np.abs(back.astype(int) - frame.astype(int))[hole].mean())
+        how = "the remover builds its LaMa" if lama is None else "LaMa built"
+        log(f"[j] picture mode {W}x{H} ({run}: {how}): run() {times[run]:.3f} s, "
+            f"mean |out - in| inside the mask {changed:.2f} on {card}")
+        if changed == 0:
+            raise AssertionError(f"[j] {run}: the picture did not change inside the mask")
+    return times
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -742,10 +984,18 @@ def main(argv) -> int:
         done("e")
         det_launches, det_fps = phase_f(card, frames, mask, video, tmp, "--profile" in argv)
         done("f")
+        det_f32, det_bf16, det_bf16_mean = phase_g(frames, mask)
+        done("g")
+        lama, lama_run = phase_h(card, frames, mask, "--profile" in argv)
+        done("h")
+        lama_vs_cpu = phase_i(card, frames, mask, lama)
+        done("i")
+        picture_s = phase_j(card, video, tmp, lama)
+        done("j")
+        detection_mobile = phase_e(card, video, "k", "PP_OCRv5_MOBILE")
+        done("k")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    det_f32, det_bf16, det_bf16_mean = phase_g(frames, mask)
-    done("g")
     # one sttn-auto transformer block's two kernel scales, as that path calls them
     main_case = [c for c in cases if c["dtype"] == "bfloat16" and c["path"] == "sttn-auto"]
 
@@ -774,6 +1024,11 @@ def main(argv) -> int:
         "full_width_u8_diff_sttn_det": {"float32": det_f32, "bfloat16_max": det_bf16,
                                         "bfloat16_mean": det_bf16_mean},
         "detection": detection,
+        "fps_1080p_bf16_lama": lama_run.pop("fps"),
+        "lama": lama_run,
+        "lama_card_vs_cpu": lama_vs_cpu,
+        "picture_s": picture_s,
+        "detection_mobile": detection_mobile,
         "card": card,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,14 @@
 """The port's detector (vsr_tpu_torch/detect/) against the JAX package's on
 the same inputs and the same params, carried by dbnet_state_dict_from_flax:
-DBNet server at the tiny widths of tests/test_detect.py, layer by layer
-(backbone, neck, head) and whole, within 1e-4 (fp32 both sides; measured
-~1e-6); a ConvTranspose with an asymmetric kernel; and
-SubtitleDetector.find_subtitle_frame_no on a small video, equal dicts."""
+DBNet server at the tiny widths of tests/test_detect.py and DBNet mobile at
+its full widths, layer by layer (backbone, neck, head) and whole, within
+1e-4 (fp32 both sides; measured ~1e-6); the mobile preset's own layers
+(LearnableRepLayer with and without its identity branch and at stride 2,
+both squeeze-excite slopes, RSEFPN, the small head); a ConvTranspose with
+an asymmetric kernel; and SubtitleDetector.find_subtitle_frame_no on a
+small video in both presets, equal dicts."""
+
+import re
 
 import cv2
 import numpy as np
@@ -14,10 +19,16 @@ import jax
 import jax.numpy as jnp
 from flax import traverse_util
 
+from vsr_tpu import config as jax_config
 from vsr_tpu.convert.params_io import save_params
+from vsr_tpu.detect import backbones as flax_backbones
+from vsr_tpu.detect import heads as flax_heads
+from vsr_tpu.detect import necks as flax_necks
 from vsr_tpu.detect.dbnet import DBNet as FlaxDBNet
 from vsr_tpu.detect.heads import DBBranchHead as FlaxBranch
+from vsr_tpu_torch import config as port_config
 from vsr_tpu_torch.convert.from_flax import dbnet_state_dict_from_flax
+from vsr_tpu_torch.detect import backbones, heads, necks
 from vsr_tpu_torch.detect.dbnet import DBNet
 from vsr_tpu_torch.detect.heads import DBBranchHead
 from vsr_tpu_torch.inpaint.weights import init_random_, load_dbnet_weights
@@ -31,6 +42,7 @@ TINY_HG_STAGES = (
     (48, 8, 64, 1, True, True, 3, 2),
 )
 TINY = dict(preset="server", hg_stages=TINY_HG_STAGES, fpn_channels=32)
+MOBILE = dict(preset="mobile")  # PP-LCNetV3 0.75 -> RSEFPN 96 -> head small
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -67,6 +79,25 @@ def tiny_pair():
     return flax_model, variables, _port(variables, **TINY)
 
 
+def _tame_branches(variables):
+    """Scale every LearnableRepLayer branch's BN output by 0.4: five or six
+    unit-variance branches summed per layer would grow the activations
+    ~5x a layer, to ~1e4 after the backbone, where fp32 rounding alone
+    exceeds the tolerance; this keeps them near 1."""
+    flat = traverse_util.flatten_dict(variables, sep="/")
+    for k in flat:
+        if re.search(r"/(conv_kxk_\d|conv_1x1)/bn/(scale|bias)$|/identity/(scale|bias)$", k):
+            flat[k] = (flat[k] * 0.4).astype(np.float32)
+    return traverse_util.unflatten_dict(flat, sep="/")
+
+
+@pytest.fixture(scope="module")
+def mobile_pair():
+    flax_model = FlaxDBNet(**MOBILE)
+    variables = _tame_branches(_variables(flax_model, 11, jnp.zeros((1, 64, 96, 3))))
+    return flax_model, variables, _port(variables, **MOBILE)
+
+
 def _nhwc(t):
     return t.permute(0, 2, 3, 1).numpy()
 
@@ -81,7 +112,17 @@ def _taps(mdl, images):
 def test_dbnet_matches_flax(tiny_pair, layer):
     """Each layer is fed the flax layer before it's output, so a failure
     names its own layer; "dbnet" is the whole forward, NHWC in and out."""
-    flax_model, variables, model = tiny_pair
+    _check_layer(tiny_pair, layer)
+
+
+@pytest.mark.parametrize("layer", ["backbone", "neck", "head", "dbnet"])
+def test_mobile_dbnet_matches_flax(mobile_pair, layer):
+    """The mobile preset at its full widths, layer by layer as above."""
+    _check_layer(mobile_pair, layer)
+
+
+def _check_layer(pair, layer):
+    flax_model, variables, model = pair
     x = np.random.default_rng(2).normal(0, 1, (2, 64, 96, 3)).astype(np.float32)
     feats, fused, prob = flax_model.apply(variables, jnp.asarray(x), method=_taps)
     with torch.no_grad():
@@ -179,8 +220,108 @@ def test_weights_npz_and_random_init(tmp_path, tiny_pair):
 
 
 def test_mobile_preset_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        DBNet(preset="mobile")
+    """The mobile preset is built (it raised naming its ROADMAP.md item
+    before it was ported): PP-LCNetV3 0.75's projected channels, RSEFPN 96,
+    the small head's C/8 calibration width; an unknown preset raises."""
+    model = DBNet(preset="mobile")
+    assert model.backbone.out_channels == [12, 18, 42, 360]
+    assert model.head.cbn_layer.last_3_conv.out_channels == 96 // 8
+    assert model.head.cbn_layer.last_3_conv.in_channels == 96 // 4 + 1
+    with pytest.raises(ValueError, match="unknown DBNet preset"):
+        DBNet(preset="tiny")
+
+
+def _port_layer(module, flax_module, seed, x):
+    """The port's ``module`` with ``flax_module``'s variables (seeded as
+    _variables draws them), and both outputs on ``x`` (NHWC)."""
+    variables = _variables(flax_module, seed, jnp.asarray(x))
+    module.load_state_dict(dbnet_state_dict_from_flax(variables), strict=True)
+    want = np.asarray(flax_module.apply(variables, jnp.asarray(x)))
+    with torch.no_grad():
+        got = _nhwc(module.eval()(torch.from_numpy(x).permute(0, 3, 1, 2)))
+    return got, want
+
+
+@pytest.mark.parametrize("cin,cout,kernel,stride,groups", [
+    (8, 8, 3, 1, 8), (8, 16, 1, 1, 1), (8, 8, 5, 2, 8)],
+    ids=["identity-branch", "no-identity-branch", "stride-2"])
+def test_learnable_rep_layer_matches_flax(cin, cout, kernel, stride, groups):
+    """The identity BN only when cin == cout at stride 1; at stride 2 no
+    hswish and no act_lab; a depthwise (grouped) kernel in the first and
+    third case. The lab/act_lab scales are drawn away from 1."""
+    x = np.random.default_rng(4).normal(0, 1, (2, 12, 10, cin)).astype(np.float32)
+    layer = backbones.LearnableRepLayer(cin, cout, kernel, stride, groups)
+    assert (layer.identity is not None) == (cin == cout and stride == 1)
+    assert (layer.act_lab is None) == (stride == 2)
+    got, want = _port_layer(layer, flax_backbones.LearnableRepLayer(cout, kernel, stride, groups),
+                            12, x)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("which", ["lcnet SELayer slope 1/6", "neck SEModule slope 0.2"])
+def test_squeeze_excite_slopes_match_flax(which):
+    """Both hard-sigmoid gates against flax; on the same weights the two
+    slopes give different outputs, so swapping them would fail."""
+    x = np.random.default_rng(5).normal(0, 1, (2, 6, 7, 16)).astype(np.float32)
+    if which.startswith("lcnet"):
+        port, flax_se, other = backbones.SELayer(16), flax_backbones.SELayer(16), necks.SEModule(16)
+    else:
+        port, flax_se, other = necks.SEModule(16), flax_necks.SEModule(16), backbones.SELayer(16)
+    got, want = _port_layer(port, flax_se, 13, x)
+    np.testing.assert_allclose(got, want, **TOL)
+    other.load_state_dict(port.state_dict())
+    with torch.no_grad():
+        swapped = _nhwc(other.eval()(torch.from_numpy(x).permute(0, 3, 1, 2)))
+    assert np.abs(swapped - want).max() > 1e-3
+
+
+def test_rsefpn_matches_flax():
+    """RSEFPN(96, shortcut) on four maps of the mobile backbone's widths."""
+    rng = np.random.default_rng(6)
+    chans = [12, 18, 42, 360]
+    feats = [rng.normal(0, 1, (2, 16 // 2 ** i, 24 // 2 ** i, c)).astype(np.float32)
+             for i, c in enumerate(chans)]
+    flax_neck = flax_necks.RSEFPN(96, shortcut=True)
+    variables = _variables(flax_neck, 14, [jnp.asarray(f) for f in feats])
+    neck = necks.RSEFPN(chans, 96, shortcut=True)
+    neck.load_state_dict(dbnet_state_dict_from_flax(variables), strict=True)
+    want = np.asarray(flax_neck.apply(variables, [jnp.asarray(f) for f in feats]))
+    with torch.no_grad():
+        got = _nhwc(neck.eval()([torch.from_numpy(f).permute(0, 3, 1, 2) for f in feats]))
+    assert got.shape == want.shape == (2, 16, 24, 96)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_small_head_matches_flax():
+    """PFHeadLocal mode "small": LocalModule C/4 + 1 -> C/8."""
+    x = np.random.default_rng(7).normal(0, 1, (2, 6, 8, 96)).astype(np.float32)
+    head = heads.PFHeadLocal(96, mode="small")
+    got, want = _port_layer(head, flax_heads.PFHeadLocal(96, mode="small"), 15, x)
+    assert got.shape == (2, 24, 32, 1)
+    np.testing.assert_allclose(got, want, **TOL)
+    assert float(np.std(got)) > 1e-4
+
+
+def test_converter_maps_mobile_affine_blocks(mobile_pair):
+    """dbnet_state_dict_from_flax on the mobile variables: every lab and
+    act_lab scale/bias lands on the affine block's weight/bias by the
+    explicit rule for those modules; any other leaf there raises."""
+    _, variables, model = mobile_pair
+    flat = traverse_util.flatten_dict(variables, sep="/")
+    affine = [k for k in flat if k.rsplit("/", 2)[-2] in ("lab", "act_lab")]
+    assert len(affine) == 2 * sum(isinstance(m, backbones.LearnableAffineBlock)
+                                  for m in model.modules())
+    state = model.state_dict()
+    for k in affine:
+        module, leaf = k[len("params/"):].rsplit("/", 1)
+        name = module.replace("/", ".") + (".weight" if leaf == "scale" else ".bias")
+        np.testing.assert_array_equal(state[name].numpy(), flat[k])
+    lab = "backbone/blocks2_0/dw_conv/lab"
+    with pytest.raises(KeyError):
+        dbnet_state_dict_from_flax({f"params/{lab}/kernel": np.ones(1, np.float32)})
+    with pytest.raises(KeyError):
+        dbnet_state_dict_from_flax({f"batch_stats/{lab}/mean": np.ones(1, np.float32)})
 
 
 # ---- the detector on a small video ----
@@ -286,6 +427,46 @@ def test_find_subtitle_frame_no_matches_jax(detector_case, sub_areas):
         return
     # the bar is found on the sampled frames that show it, and only there
     # (the random network also marks a corner of the frame on some samples)
+    for frame_no in range(1, 15, det.sample_step):
+        assert any(_covers_bar(b) for b in got.get(frame_no, [])) == (
+            frame_no not in NO_BAR), (frame_no, got.get(frame_no))
+
+
+@pytest.fixture(scope="module")
+def mobile_detector_case(tmp_path_factory):
+    d = tmp_path_factory.mktemp("det_mobile")
+    video = str(d / "v.mp4")
+    _write_video(video)
+    cap = cv2.VideoCapture(video)
+    _, frame = cap.read()
+    cap.release()
+    flax_model = FlaxDBNet(**MOBILE)
+    variables = _tame_branches(_variables(flax_model, 29, jnp.zeros((1, 64, 96, 3))))
+    ckpt = str(d / "dbnet.npz")
+    save_params(ckpt, _calibrated(flax_model, variables, frame))
+    return video, ckpt
+
+
+@pytest.mark.parametrize("sub_areas", [None, [(40, 96, 0, 128)]],
+                         ids=["whole frame", "bottom area"])
+def test_find_subtitle_frame_no_mobile_matches_jax(mobile_detector_case, sub_areas):
+    """subtitle_detect_mode PP_OCRv5_MOBILE: each package's detector builds
+    the mobile DBNet itself, at full width; calibrated output convs as
+    above. The port's dict equals the JAX package's and finds the bar."""
+    from vsr_tpu.detect.detector import SubtitleDetector as JaxDetector
+    from vsr_tpu_torch.detect.detector import SubtitleDetector
+
+    video, ckpt = mobile_detector_case
+    mode = "PP_OCRv5_MOBILE"
+    jax_det = JaxDetector(video, sub_areas=sub_areas, checkpoint_path=ckpt, batch_size=4,
+                          config=jax_config.Config(
+                              subtitle_detect_mode=jax_config.SubtitleDetectMode(mode)))
+    det = SubtitleDetector(video, sub_areas=sub_areas, checkpoint_path=ckpt, batch_size=4,
+                           device="cpu", config=port_config.Config(
+                               subtitle_detect_mode=port_config.SubtitleDetectMode(mode)))
+    got = det.find_subtitle_frame_no()
+    assert isinstance(det.model.backbone, backbones.PPLCNetV3)
+    assert got == jax_det.find_subtitle_frame_no()
     for frame_no in range(1, 15, det.sample_step):
         assert any(_covers_bar(b) for b in got.get(frame_no, [])) == (
             frame_no not in NO_BAR), (frame_no, got.get(frame_no))

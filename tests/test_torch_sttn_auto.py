@@ -128,7 +128,7 @@ def test_cli_end_to_end(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-i", "x.mp4", "--inpaint-mode", "lama"], "item 7"),
+    (["-i", "x.mp4", "--warmup"], "item 4"),
     (["-i", "x.mp4", "--inpaint-mode", "propainter"], "item 8"),
     (["--gui"], "item 11"),
 ])
@@ -142,12 +142,21 @@ def test_cli_unported_modes_exit_with_roadmap_item(argv, item, capsys):
 
 
 def test_picture_input_raises_with_roadmap_item(tmp_path):
-    """Picture mode (detection + LaMa) is not ported: an image path raises
-    before anything is read or a device is asked for."""
+    """Picture mode (detection + LaMa) is ported, so an image path no longer
+    raises naming ROADMAP.md item 7: it is read at construction (size,
+    default output no_sub/<name>.png), and one that cannot be read raises.
+    tests/test_torch_lama_pipeline.py runs the mode."""
+    import cv2
+
     from vsr_tpu_torch.pipeline import SubtitleRemover
 
-    with pytest.raises(NotImplementedError, match="picture mode.*item 7"):
+    with pytest.raises(IOError, match="cannot read image"):
         SubtitleRemover(str(tmp_path / "missing.png"), device="cpu")
+    path = str(tmp_path / "pic.jpg")
+    cv2.imwrite(path, np.zeros((30, 40, 3), np.uint8))
+    remover = SubtitleRemover(path, device="cpu")
+    assert remover.is_picture and remover.size == (40, 30) and remover.frame_count == 1
+    assert remover.video_out_path == str(tmp_path / "no_sub" / "pic.jpg")
 
 
 def test_cuda_without_gpu_raises():

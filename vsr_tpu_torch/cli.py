@@ -1,12 +1,14 @@
 """Command line of the port:
 
     python -m vsr_tpu_torch -i in.mp4 [-o out.mp4] [-c YMIN YMAX XMIN XMAX ...]
-                            [--inpaint-mode sttn-auto|sttn-det|opencv]
+                            [--inpaint-mode sttn-auto|sttn-det|lama|opencv]
                             [--models DIR] [--device cuda]
+    python -m vsr_tpu_torch -i picture.png [-o out.png]   (detection + LaMa;
+                            default output no_sub/picture.png)
 
-The flags and defaults are those of ``vsr_tpu.cli`` plus ``--device``. Modes
-(lama, propainter) and flags that are not ported yet exit with an error
-naming their ROADMAP.md item.
+The flags and defaults are those of ``vsr_tpu.cli`` plus ``--device``. A
+mode (propainter) or flag that is not ported yet exits with an error naming
+its ROADMAP.md item.
 """
 
 from __future__ import annotations

@@ -58,13 +58,16 @@ class LocalModule(nn.Module):
 class PFHeadLocal(nn.Module):
     """[B, C, H/4, W/4] fused features -> [B, 1, H, W] probability map.
 
-    Mode "large" (the server preset): LocalModule C/4 + 1 -> C/4. The
-    mobile preset's "small" (-> C/8) comes with that preset."""
+    LocalModule C/4 + 1 -> C/4 in mode "large" (the server preset), -> C/8
+    in mode "small" (the mobile preset)."""
 
-    def __init__(self, in_channels: int):
+    def __init__(self, in_channels: int, mode: str = "large"):
         super().__init__()
+        if mode not in ("large", "small"):
+            raise ValueError(f"unknown PFHeadLocal mode: {mode}")
         self.binarize = DBBranchHead(in_channels)
-        self.cbn_layer = LocalModule(in_channels // 4 + 1, in_channels // 4)
+        mid = in_channels // (4 if mode == "large" else 8)
+        self.cbn_layer = LocalModule(in_channels // 4 + 1, mid)
 
     def forward(self, fuse: torch.Tensor) -> torch.Tensor:
         base, f = self.binarize(fuse, return_f=True)

@@ -1,14 +1,14 @@
-"""LKPAN, the PP-OCRv5 server detector's neck (PyTorch).
+"""The PP-OCRv5 detectors' necks (PyTorch): RSEFPN (mobile preset) and
+LKPAN (server preset).
 
-Counterpart of ``IntraCLBlock`` and ``LKPAN`` in ``vsr_tpu/detect/necks.py``
-(PaddleOCR db_fpn.LKPAN, mode='large', with the necks/intracl.py
+Counterpart of ``vsr_tpu/detect/necks.py`` (PaddleOCR db_fpn.RSEFPN with
+shortcut, and db_fpn.LKPAN, mode='large', with the necks/intracl.py
 IntraCLBlock that the server preset always uses).
-It takes the backbone's four stride-4/8/16/32 maps and returns the stride-4
-fused map of ``out_channels`` channels (four quarters concatenated). NCHW;
-module names are the flax ones. Nearest upsampling by an integer factor is a
-repeat along H and W, as ``jnp.repeat`` in the JAX package.
-
-The mobile preset's RSEFPN is not ported yet (ROADMAP.md Queue 1 item 6).
+Each takes the backbone's four stride-4/8/16/32 maps and returns the
+stride-4 fused map of ``out_channels`` channels (four quarters
+concatenated). NCHW; module names are the flax ones. Nearest upsampling by
+an integer factor is a repeat along H and W, as ``jnp.repeat`` in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vsr_tpu_torch.detect.backbones import hard_sigmoid
 
 
 def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -30,6 +32,61 @@ def _conv(cin: int, cout: int, kernel, bias: bool = True, stride: int = 1) -> nn
     kh, kw = kernel if isinstance(kernel, tuple) else (kernel, kernel)
     return nn.Conv2d(cin, cout, (kh, kw), stride=stride, padding=(kh // 2, kw // 2),
                      bias=bias)
+
+
+class SEModule(nn.Module):
+    """det_mobilenet_v3.SEModule: pool -> 1x1 ReLU -> 1x1 hard sigmoid
+    (slope 0.2) -> scale."""
+
+    def __init__(self, channels: int, reduction: int = 4):
+        super().__init__()
+        self.conv1 = _conv(channels, channels // reduction, 1)
+        self.conv2 = _conv(channels // reduction, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        att = F.relu(self.conv1(x.mean(dim=(2, 3), keepdim=True)))
+        return x * hard_sigmoid(self.conv2(att), 0.2)
+
+
+class RSELayer(nn.Module):
+    """Conv (no bias) + squeeze-excite, with a residual when ``shortcut``."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, shortcut: bool = True):
+        super().__init__()
+        self.in_conv = _conv(cin, cout, kernel, bias=False)
+        self.se_block = SEModule(cout)
+        self.shortcut = shortcut
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.in_conv(x)
+        se = self.se_block(x)
+        return x + se if self.shortcut else se
+
+
+class RSEFPN(nn.Module):
+    """The mobile neck: 1x1 RSE laterals, top-down sums, 3x3 RSE per level,
+    every level upsampled to stride 4 and concatenated (p5, p4, p3, p2)."""
+
+    def __init__(self, in_channels: Sequence[int], out_channels: int = 96,
+                 shortcut: bool = True):
+        super().__init__()
+        q = out_channels // 4
+        for i, c in enumerate(in_channels):
+            self.add_module(f"ins_conv_{i}", RSELayer(c, out_channels, 1, shortcut))
+            self.add_module(f"inp_conv_{i}", RSELayer(out_channels, q, 3, shortcut))
+
+    def forward(self, feats: List[torch.Tensor]) -> torch.Tensor:
+        m = self._modules
+        in2, in3, in4, in5 = (m[f"ins_conv_{i}"](c) for i, c in enumerate(feats))
+        out4 = in4 + upsample_nearest(in5, 2)
+        out3 = in3 + upsample_nearest(out4, 2)
+        out2 = in2 + upsample_nearest(out3, 2)
+        p5 = m["inp_conv_3"](in5)
+        p4 = m["inp_conv_2"](out4)
+        p3 = m["inp_conv_1"](out3)
+        p2 = m["inp_conv_0"](out2)
+        return torch.cat([upsample_nearest(p5, 8), upsample_nearest(p4, 4),
+                          upsample_nearest(p3, 2), p2], dim=1)
 
 
 class IntraCLBlock(nn.Module):

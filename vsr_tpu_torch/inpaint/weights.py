@@ -1,5 +1,6 @@
-"""Weight loading for the STTN and DBNet models: converted .npz, reference
-.pth (STTN), or a seeded random init (this repo ships no trained weights)."""
+"""Weight loading for the STTN, DBNet and LaMa models: converted .npz,
+reference .pth (STTN), or a seeded random init (this repo ships no trained
+weights)."""
 
 from __future__ import annotations
 
@@ -14,15 +15,19 @@ from torch import nn
 
 from vsr_tpu_torch.convert.from_flax import (
     dbnet_state_dict_from_flax,
+    lama_state_dict_from_flax,
     sttn_state_dict_from_flax,
 )
+from vsr_tpu_torch.detect.backbones import LearnableAffineBlock
 
 
 def init_random_(model: nn.Module, seed: int = 0) -> None:
     """LeCun-normal conv kernels and zero biases (the flax defaults), drawn
     from a torch.Generator seeded with ``seed`` on the CPU. BatchNorm layers
-    get flax's start values instead: scale 1, bias 0, mean 0, var 1."""
-    bn = [m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    and LCNetV3's affine blocks get flax's start values instead: scale 1,
+    bias 0 (and BatchNorm mean 0, var 1)."""
+    bn = [m for m in model.modules()
+          if isinstance(m, (nn.modules.batchnorm._BatchNorm, LearnableAffineBlock))]
     bn_params = {id(p) for m in bn for p in m.parameters(recurse=False)}
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -46,7 +51,11 @@ def _load_or_init(model: nn.Module, checkpoint_path: Optional[str], seed: int,
         if checkpoint_path.endswith(".npz"):
             with np.load(checkpoint_path) as data:
                 state = from_npz({k: data[k] for k in data.files})
-        elif torch_checkpoints and checkpoint_path.endswith((".pth", ".pt", ".ckpt")):
+        elif checkpoint_path.endswith((".pth", ".pt", ".ckpt")):
+            if not torch_checkpoints:
+                raise ValueError(
+                    f"{checkpoint_path}: raw torch checkpoints of this model need the "
+                    "JAX package's converter (--prepare-models); convert to .npz first")
             ckpt = torch.load(checkpoint_path, map_location="cpu")
             state = ckpt.get("netG", ckpt)
         else:
@@ -83,4 +92,18 @@ def load_dbnet_weights(model: nn.Module, checkpoint_path: Optional[str] = None,
     when a path was given. Paddle checkpoints go through the JAX package's
     converter to .npz first (ROADMAP.md Queue 1 item 4)."""
     _load_or_init(model, checkpoint_path, seed, dbnet_state_dict_from_flax,
+                  torch_checkpoints=False)
+
+
+def load_lama_weights(model: nn.Module, checkpoint_path: Optional[str] = None,
+                      seed: int = 0) -> None:
+    """Fill a LamaGenerator's parameters and BatchNorm statistics in place.
+
+    ``.npz``: the JAX package's LamaGenerator variables (params and
+    batch_stats, converted with lama_state_dict_from_flax); a big-lama.pt
+    reaches it through the JAX package's converter (``--prepare-models``).
+    A ``.pth``/``.pt`` path raises, as in the JAX package. Missing or absent
+    path: seeded random init with flax's BatchNorm start values, with a
+    warning when a path was given."""
+    _load_or_init(model, checkpoint_path, seed, lama_state_dict_from_flax,
                   torch_checkpoints=False)

@@ -1,14 +1,16 @@
-"""Pipeline orchestrator of the port: the video part of
-``vsr_tpu/pipeline.py``'s SubtitleRemover (the reference's backend/main.py).
+"""Pipeline orchestrator of the port: counterpart of ``vsr_tpu/pipeline.py``'s
+SubtitleRemover (the reference's backend/main.py).
 
-Owns video I/O, runs the detector and the inpainters on an explicit device,
-tracks progress and remuxes the source audio into the output. Modes:
+Owns video and picture I/O, runs the detector and the inpainters on an
+explicit device, tracks progress and remuxes the source audio into the
+output. Modes:
 
 * STTN_AUTO — fixed-area streaming temporal inpaint (ref main.py:247-258)
-* STTN_DET / OPENCV — detection-driven batch inpaint (ref main.py:260-333)
+* STTN_DET / LAMA / OPENCV — detection-driven batch inpaint (ref
+  main.py:260-333)
+* picture input — detection + LaMa on one image (ref main.py:353-371)
 
-LaMa, ProPainter and picture mode are not ported yet and raise, naming
-their ROADMAP.md item.
+ProPainter is not ported yet and raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import time
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
+import cv2
 import numpy as np
 import torch
 
@@ -37,10 +40,8 @@ from vsr_tpu_torch.utils.device import resolve_device
 
 IMAGE_EXTENSIONS = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
 
-# ROADMAP.md Queue 1 item that ports each mode still missing (picture mode
-# waits for LaMa).
+# ROADMAP.md Queue 1 item that ports each mode still missing
 UNPORTED_MODES = {
-    InpaintMode.LAMA: "7",
     InpaintMode.PROPAINTER: "8",
 }
 
@@ -65,15 +66,23 @@ class SubtitleRemover:
         device: Union[str, torch.device] = "cuda",
     ):
         self.video_path = str(video_path)
-        if is_image_file(self.video_path):
-            _not_ported("picture mode", "7")
         self.device = resolve_device(device)
         self.config = config or Config()
         self.checkpoint_dir = checkpoint_dir or os.environ.get("VSR_TPU_MODELS", "")
+        self.is_picture = is_image_file(self.video_path)
+        self.vd_name = Path(self.video_path).stem
+        self.ext = os.path.splitext(self.video_path)[-1]
 
-        info = read_video_info(self.video_path)
-        self.frame_width, self.frame_height = info.width, info.height
-        self.fps, self.frame_count = info.fps, info.frame_count
+        if self.is_picture:
+            img = cv2.imread(self.video_path)
+            if img is None:
+                raise IOError(f"cannot read image: {self.video_path}")
+            self.frame_height, self.frame_width = img.shape[:2]
+            self.fps, self.frame_count = 0.0, 1
+        else:
+            info = read_video_info(self.video_path)
+            self.frame_width, self.frame_height = info.width, info.height
+            self.fps, self.frame_count = info.fps, info.frame_count
         self.size = (self.frame_width, self.frame_height)
         self.mask_size = (self.frame_height, self.frame_width)
 
@@ -82,6 +91,9 @@ class SubtitleRemover:
 
         if output_path:
             self.video_out_path = os.path.abspath(output_path)
+        elif self.is_picture:
+            self.video_out_path = os.path.abspath(os.path.join(
+                os.path.dirname(self.video_path), "no_sub", f"{self.vd_name}{self.ext}"))
         else:
             self.video_out_path = os.path.abspath(os.path.join(
                 os.path.dirname(self.video_path),
@@ -96,6 +108,7 @@ class SubtitleRemover:
 
         self._sttn_auto = None
         self._sttn_det = None
+        self._lama = None
         self._detector = None
 
     # ---- observability ----
@@ -144,7 +157,13 @@ class SubtitleRemover:
 
     @property
     def lama_inpaint(self):
-        _not_ported("LaMa inpainting", "7")
+        if self._lama is None:
+            from vsr_tpu_torch.inpaint.lama import LamaInpainter
+
+            self._lama = LamaInpainter(
+                checkpoint_path=self._ckpt("lama.npz"), config=self.config,
+                device=self.device)
+        return self._lama
 
     @property
     def propainter_inpaint(self):
@@ -267,10 +286,27 @@ class SubtitleRemover:
                         coords.append(area)
         return coords
 
+    def _run_picture(self) -> None:
+        """Single-image removal via detection + LaMa (ref main.py:353-371):
+        the whole model output is written, as the reference does."""
+        original = cv2.imread(self.video_path)
+        boxes = self.detector.detect_subtitle(original)
+        if boxes:
+            mask = create_mask(
+                original.shape[:2], boxes, self.config.subtitle_area_deviation_pixel
+            )
+            out = self.lama_inpaint.inpaint(original, mask)
+        else:
+            out = original
+        os.makedirs(os.path.dirname(self.video_out_path) or ".", exist_ok=True)
+        if not cv2.imwrite(self.video_out_path, out):
+            raise IOError(f"cannot write image: {self.video_out_path}")
+        self._progress(1)
+
     # ---- main entry ----
     def run(self) -> None:
         mode = self.config.inpaint_mode
-        if mode in UNPORTED_MODES:
+        if mode in UNPORTED_MODES and not self.is_picture:
             _not_ported(f"inpaint mode {mode.value}", UNPORTED_MODES[mode])
         start_time = time.time()
         if not self.sub_areas:
@@ -282,11 +318,24 @@ class SubtitleRemover:
         self.append_output(tr.text(
             "Main", "SubtitleRemoverModel",
             tr.text("InpaintMode", mode.name)))
-        if mode != InpaintMode.STTN_AUTO:
+        if mode != InpaintMode.STTN_AUTO or self.is_picture:
             self.append_output(tr.text(
                 "Main", "SubtitleDetectionModel",
                 tr.text("SubtitleDetectMode", self.config.subtitle_detect_mode.name)))
 
+        if self.is_picture:
+            self._run_picture()
+        else:
+            self._run_video(mode)
+
+        self.is_finished = True
+        self.progress_total = 100
+        self.append_output(tr.text("Main", "FinishedProcessing",
+                                   self.video_out_path))
+        self.append_output(tr.text("Main", "ProcessingTime",
+                                   round(time.time() - start_time, 1)))
+
+    def _run_video(self, mode: InpaintMode) -> None:
         tmp = tempfile.NamedTemporaryFile(suffix=".mp4", delete=False)
         tmp.close()
         writer = VideoWriter(
@@ -298,6 +347,8 @@ class SubtitleRemover:
                 self._sttn_auto_mode(writer)
             elif mode == InpaintMode.STTN_DET:
                 self._video_inpaint_mode(writer, self.sttn_det_inpaint)
+            elif mode == InpaintMode.LAMA:
+                self._video_inpaint_mode(writer, self.lama_inpaint)
             elif mode == InpaintMode.OPENCV:
                 from vsr_tpu_torch.inpaint.opencv import OpenCVInpainter
 
@@ -322,10 +373,3 @@ class SubtitleRemover:
             os.remove(tmp.name)
         except OSError:
             pass
-
-        self.is_finished = True
-        self.progress_total = 100
-        self.append_output(tr.text("Main", "FinishedProcessing",
-                                   self.video_out_path))
-        self.append_output(tr.text("Main", "ProcessingTime",
-                                   round(time.time() - start_time, 1)))
