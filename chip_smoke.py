@@ -22,7 +22,7 @@ non-zero and prints no result line):
       that served it;
   (c) the main path: STTNAutoInpainter.process_video in bf16 on 100
       synthetic 1920x1080 frames (2 chunks of 50) under the bottom-band
-      subtitle mask, full model width, seeded random weights, three timed
+      subtitle mask, full model width, seeded random weights, MAIN_RUNS timed
       runs after a warm one; frames in == frames out, pixels outside the
       mask bit-identical, pixels inside changed, kernel launches == 2
       scales x 8 blocks x windows x chunks in every run; frames/s. With
@@ -41,7 +41,7 @@ non-zero and prints no result line):
       against the same weights on the CPU in fp32 (max |err| <= DET_TOL),
       and, for the record only, with TF32 on; the boxes found;
   (f) the sttn-det main path: STTNDetInpainter.__call__ in bf16 on the 100
-      frames of (c) under the same mask, three timed runs after a warm one
+      frames of (c) under the same mask, MAIN_RUNS timed runs after a warm one
       (frames in == frames out, outside the mask bit-identical, inside
       changed, kernel launches == 8 blocks x windows x chunks, all at the
       (9,5) scale); then SubtitleRemover(..., device="cuda").run() in
@@ -54,7 +54,7 @@ non-zero and prints no result line):
       bf16 within phase d's max and mean limits;
   (h) the LaMa band path: LamaInpainter.__call__ in bf16 on the 100 frames
       of (c) under the same mask, big-lama at full width (ngf 64, 18 FFC
-      blocks) with seeded random weights, one warm run and three timed
+      blocks) with seeded random weights, one warm run and MAIN_RUNS timed
       runs (frames in == frames out, outside the mask bit-identical,
       inside changed, no hand kernel launched: the path is cuDNN + cuFFT);
       the band geometry, frames/s, one band batch's device time and its
@@ -74,6 +74,30 @@ non-zero and prints no result line):
   (k) the mobile detector: (e) again with subtitle_detect_mode
       PP_OCRv5_MOBILE (PP-LCNetV3 0.75 + RSEFPN 96 + the small head), its
       random weights tamed (see LCNET_BRANCH_SCALE).
+
+  (l) the ProPainter band path: PropainterInpainter.__call__ in bf16 (RAFT
+      in fp32, cuDNN's TF32 at PyTorch's default, on) on the first 70
+      frames of (c) (one propainter_max_load_num batch) under the same
+      mask, full model width (generator channel 128, hidden 512, 8 blocks,
+      4 heads, window (5,9), pool (4,4); RAFT 20 iterations, 4 levels,
+      radius 4), seeded random weights; one warm run and two timed runs
+      (frames in == frames out, outside the dilated mask bit-identical,
+      inside changed, no hand kernel launched: the path has none); the band
+      geometry, frames/s, each stage's device time (CUDA events around
+      flows, completion, image propagation, encode, window sweep), each
+      stage's FLOPs (torch's FlopCounterMode on the meta device, the same
+      code at the same shapes) and peak memory. With --profile, a
+      torch.profiler table in chiprun_out/chip_smoke_profile_propainter.txt;
+  (m) ProPainter on the card against the CPU, fp32 with TF32 off, same
+      weights: RAFT on one 128x256 pair (flow within PP_FLOW_TOL px), the
+      full-width generator's encode + forward_encoded on one small window
+      (within PP_GEN_TOL); then one full-width band window through the
+      generator in bf16 against fp32 on the card, from the same fp32 flows
+      and propagated frames, uint8 inside the hole within the limits below;
+  (n) propainter mode end to end: SubtitleRemover(mp4, device="cuda").run()
+      on (e)'s mp4 with the fixed frame -> boxes map of (f) plus frame 80
+      alone: scene detection, the 30- and 10-frame ranges through
+      ProPainter, frame 80 through LaMa; the output's frames and size.
 
 Phase b also runs the kernel at STTN-det's (9,5) scale (N = 2304, and 1728
 for a short range's chunk; D = 2880) with, besides the two biases above,
@@ -101,7 +125,9 @@ from torch import nn
 
 W, H = 1920, 1080
 N_FRAMES = 100  # two chunks of clip_gap = 50
-MAIN_RUNS = 3
+# timed runs of phases c, f and h: two since phases l-n took the script past
+# ten minutes (three until then)
+MAIN_RUNS = 2
 SEED = 0
 F32_TOL, BF16_TOL = 2e-5, 2e-2  # |err| <= tol * (1 + |ref|), as tests/test_pallas_attention.py
 # bf16 also: ||got - ref|| / ||ref|| <= BF16_REL. The element-wise bound above
@@ -147,6 +173,19 @@ LAMA_BF16_MAX_U8, LAMA_BF16_MEAN_U8 = 4, 0.5
 # 256x512); each block's second BatchNorm scaled by this keeps it near 1
 LAMA_RESIDUAL_SCALE = 0.3
 PICTURE_FRAME = 15  # a frame of the mp4 with a subtitle line
+PP_FRAMES = 70  # one propainter_max_load_num batch
+PP_RUNS = 2
+# ProPainter on the card (fp32, TF32 off) against the CPU: RAFT's flow in
+# pixels, and the generator's tanh output, the repo's activation-parity
+# bound (ROADMAP.md)
+PP_FLOW_TOL, PP_GEN_TOL = 1e-3, 1e-3
+# one band window through the generator, bf16 against fp32 on the card,
+# uint8 inside the hole: measured max 7, mean 0.589 on an H100 at 700 W
+# (PERF.md); 4x the max and ~5x the mean, as for LaMa
+PP_BF16_MAX_U8, PP_BF16_MEAN_U8 = 28, 3.0
+PP_STAGES = {"_compute_flows": "flows", "_complete_flows": "completion",
+             "_propagate_images": "image propagation", "_encode_clip": "encode",
+             "_sweep_windows": "window sweep"}
 # random PP-LCNetV3 weights sum five or six unit-scale branches a layer and
 # grow the backbone's activations to ~1e4: the map is noise (94% of it over
 # the 0.3 threshold), and post-processing its contours took 240 ms a frame
@@ -956,6 +995,299 @@ def phase_j(card, video, tmp, inpainter):
     return times
 
 
+def propainter_inpainter(dtype):
+    from vsr_tpu_torch.config import Config
+    from vsr_tpu_torch.inpaint.propainter import PropainterInpainter
+
+    return PropainterInpainter(config=Config(compute_dtype=dtype), device="cuda")
+
+
+def stage_times(inpainter, run):
+    """run() with CUDA events around each stage method of the inpainter
+    (PP_STAGES): (its result, its wall seconds, {stage: device ms between
+    the stage's events, summed over its calls})."""
+    events = {}
+
+    def wrap(fn, label):
+        def wrapper(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            events.setdefault(label, []).append((start, end))
+            return out
+        return wrapper
+
+    for attr, label in PP_STAGES.items():
+        setattr(inpainter, attr, wrap(getattr(inpainter, attr), label))
+    try:
+        out, dt = timed(run)
+    finally:
+        for attr in PP_STAGES:
+            delattr(inpainter, attr)  # back to the class's method
+    return out, dt, {label: sum(s.elapsed_time(e) for s, e in pairs)
+                     for label, pairs in events.items()}
+
+
+def propainter_flops(inpainter, n_frames, band_h, band_w, hole):
+    """FLOPs of each stage of one clip of n_frames band crops band_h x band_w
+    under the float mask ``hole`` (already dilated): the inpainter's own
+    stage methods, run on the meta device (shapes only, nothing computed)
+    under torch's FlopCounterMode, which counts the matmuls and
+    convolutions. Image propagation has none (gathers and blends)."""
+    import copy
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    meta = copy.copy(inpainter)
+    meta.device = torch.device("meta")
+    for name in ("raft", "flow_net", "generator"):
+        setattr(meta, name, copy.deepcopy(getattr(inpainter, name)).to("meta"))
+    frames_n = torch.zeros((n_frames, 3, band_h, band_w), device="meta")
+    masks = torch.zeros((n_frames, 1, band_h, band_w), device="meta")
+    mw = inpainter._masked_window_set(hole)
+
+    def count(fn):
+        counter = FlopCounterMode(display=False)
+        with counter:
+            out = fn()
+        return out, counter.get_total_flops()
+
+    flops = {}
+    with torch.inference_mode():
+        flows, flops["flows"] = count(lambda: meta._compute_flows(frames_n))
+        _, flops["completion"] = count(lambda: meta._complete_flows(*flows, masks))
+        enc, flops["encode"] = count(lambda: meta._encode_clip(frames_n, masks, masks))
+        _, flops["window sweep"] = count(lambda: meta._sweep_windows(
+            enc, *flows, masks, masks, frames_n.to(torch.uint8), masks[0] > 0,
+            inpainter._mask_rows(hole), None if mw is None else torch.as_tensor(mw, device="meta")))
+    return flops
+
+
+def phase_l(card, frames, mask, profile):
+    from vsr_tpu_torch.inpaint import propainter
+    from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
+    from vsr_tpu_torch.ops import token_attention
+
+    # what a PyTorch process gets by default (phase b turned both off):
+    # cuDNN convolutions may use TF32, fp32 matmuls do not
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    inpainter = propainter_inpainter("bfloat16")
+    clip = frames[:PP_FRAMES]
+    bands = get_inpaint_area_by_mask(W, H, int(W * 3 / 16), mask[:, :, None], multiple=8)
+    ymin, ymax = bands[0][:2]
+    hole = propainter.dilate_mask(mask[ymin:ymax], inpainter.mask_dilation)
+    rows = inpainter._mask_rows(hole)
+    mw = inpainter._masked_window_set(hole)
+    n_windows = len(inpainter._windows(PP_FRAMES))
+    log(f"[l] ProPainter band path: bands {bands} ({ymax - ymin}x{W}), dilated hole rows "
+        f"{rows} of the band, attention windows with hole "
+        f"{'all' if mw is None else len(mw)}; {n_windows} windows over {PP_FRAMES} frames")
+    flops = propainter_flops(inpainter, PP_FRAMES, ymax - ymin, W, hole)
+    log("[l] FLOPs of one clip (FlopCounterMode, meta device): " +
+        ", ".join(f"{k} {v / 1e12:.3f} TFLOP" for k, v in flops.items()))
+    dilated = np.zeros((H, W), np.float32)
+    dilated[ymin:ymax] = hole
+    _, dt = timed(lambda: inpainter(clip, mask))
+    log(f"[l] warm pass: {PP_FRAMES} frames in {dt:.2f} s")
+    fps, stages, peak = [], {}, 0.0
+    for run in range(PP_RUNS):
+        token_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out, dt, stages = stage_times(inpainter, lambda: inpainter(clip, mask))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if token_attention.launches:
+            raise AssertionError(f"[l] the ProPainter path launched token attention "
+                                 f"{token_attention.launches} times")
+        if len(out) != len(clip):
+            raise AssertionError(f"[l] {len(out)} frames out of {len(clip)}")
+        check_frames(clip, out, dilated, "l")
+        fps.append(len(out) / dt)
+        log(f"[l] propainter {W}x{H} bf16 run {run + 1}: {fps[-1]:.2f} frames/s ({dt:.3f} s "
+            f"for {len(out)} frames; hand-kernel launches 0; peak memory {peak:.2f} GB) on {card}")
+        log(f"[l] run {run + 1} device time by stage (CUDA events): " +
+            ", ".join(f"{k} {v:.1f} ms" + (f" ({flops[k] / v / 1e9:.1f} TFLOP/s)"
+                                           if flops.get(k) else "")
+                      for k, v in stages.items()) +
+            f"; sum {sum(stages.values()):.1f} ms of {1e3 * dt:.1f} ms wall")
+    inside = dilated > 0
+    change = np.mean([np.abs(o.astype(int) - f.astype(int))[inside].mean()
+                      for o, f in zip(out, clip)])
+    log(f"[l] mean |out - in| inside the dilated hole {change:.2f} uint8")
+    if profile:
+        profile_run(lambda: inpainter(clip, mask), PP_FRAMES, card, "l",
+                    "chip_smoke_profile_propainter.txt")
+    return inpainter, {"fps": fps, "band": [int(ymin), int(ymax), W], "hole_rows": list(rows),
+                       "windows": n_windows,
+                       "windows_with_hole": None if mw is None else int(len(mw)),
+                       "stage_ms": stages, "tflop": {k: v / 1e12 for k, v in flops.items()},
+                       "peak_memory_gb": peak, "mean_u8_change_in_hole": float(change)}
+
+
+def phase_m(card, frames, mask, bf16):
+    """(see the module docstring)"""
+    import copy
+
+    from vsr_tpu_torch.inpaint import propainter
+    from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = propainter_inpainter("float32")
+    dev = f32.device
+    rng = np.random.default_rng(SEED)
+    out = {}
+    with torch.inference_mode():
+        # RAFT on one pair: a crop of the noise frame and the same shifted by (5, 3)
+        pair = synthetic_video(1)[0][:140, :272].astype(np.float32) / 127.5 - 1
+        img1 = torch.from_numpy(np.ascontiguousarray(pair[:128, :256])).permute(2, 0, 1)[None]
+        img2 = torch.from_numpy(np.ascontiguousarray(pair[3:131, 5:261])).permute(2, 0, 1)[None]
+        cpu_raft = copy.deepcopy(f32.raft).cpu()
+        got = f32.raft(img1.to(dev), img2.to(dev)).cpu()
+        want, dt_cpu = timed(lambda: cpu_raft(img1, img2))
+        err = float((got - want).abs().max())
+        log(f"[m] RAFT ({f32.raft.iters} iterations, {f32.raft.corr_levels} levels, radius "
+            f"{f32.raft.corr_radius}) on one 128x256 pair, card fp32 (TF32 off) vs CPU: max "
+            f"|flow err| {err:.3e} px (limit {PP_FLOW_TOL:g}), flow |mean| "
+            f"{float(want.abs().mean()):.3f} max {float(want.abs().max()):.3f} px; CPU "
+            f"{dt_cpu:.2f} s")
+        if not torch.isfinite(got).all() or err > PP_FLOW_TOL:
+            raise AssertionError(f"[m] RAFT card vs CPU: {err} > {PP_FLOW_TOL}")
+        out["raft_flow_max_abs_err_px"] = err
+
+        # the full-width generator on one small window: 3 local frames, 2 refs
+        cpu_gen = copy.deepcopy(f32.generator).cpu()
+        T, lt, h, w = 5, 3, 64, 128
+        masked = torch.from_numpy(rng.uniform(-1, 1, (1, T, 3, h, w)).astype(np.float32))
+        masks = torch.zeros((1, T, 1, h, w))
+        masks[..., 24:44, 16:112] = 1.0
+        masked = masked * (1 - masks)
+        flows = tuple(torch.from_numpy(rng.normal(0, 2, (1, lt - 1, 2, h, w)).astype(np.float32))
+                      for _ in range(2))
+
+        def gen_forward(model, device):
+            args = [t.to(device) for t in (masked, masks, masks)]
+            enc = model.encode(*args)
+            return model.forward_encoded(enc, tuple(f.to(device) for f in flows), args[1],
+                                         args[2], lt).cpu()
+
+        got = gen_forward(f32.generator, dev)
+        want, dt_cpu = timed(lambda: gen_forward(cpu_gen, "cpu"))
+        err = float((got - want).abs().max())
+        log(f"[m] generator (channel {f32.generator.channel}, hidden {f32.generator.hidden}, "
+            f"{f32.generator.depths} blocks) on a {T}-frame {h}x{w} window, card fp32 vs CPU: "
+            f"max |err| {err:.3e} (limit {PP_GEN_TOL:g}), output std {float(want.std()):.4f}; "
+            f"CPU {dt_cpu:.2f} s")
+        if not torch.isfinite(got).all() or err > PP_GEN_TOL:
+            raise AssertionError(f"[m] generator card vs CPU: {err} > {PP_GEN_TOL}")
+        out["generator_max_abs_err"] = err
+
+        # one full-width band window, the generator in bf16 against fp32
+        ymin, ymax = get_inpaint_area_by_mask(W, H, int(W * 3 / 16), mask[:, :, None],
+                                              multiple=8)[0][:2]
+        hole = propainter.dilate_mask(mask[ymin:ymax], f32.mask_dilation)
+        clip = [f[ymin:ymax] for f in frames[:11]]
+        rgb = torch.from_numpy(np.stack(clip)).to(dev).flip(-1).permute(0, 3, 1, 2).contiguous()
+        frames_n = rgb.float() / 255.0 * 2.0 - 1.0
+        m = torch.from_numpy(hole).to(dev)[None, None].expand(len(clip), 1, *hole.shape)
+        flows_f, flows_b = f32._compute_flows(frames_n)
+        comp_f, comp_b = f32._complete_flows(flows_f, flows_b, m)
+        updated, upd_masks = f32._propagate_images(frames_n, m, comp_f, comp_b)
+        ns, rs = f32._windows(len(clip))[0]
+        sel, pair = torch.tensor(ns + rs, device=dev), torch.tensor(ns[:-1], device=dev)
+        mw = f32._masked_window_set(hole)
+        mw = None if mw is None else torch.as_tensor(mw, device=dev)
+        preds = []
+        for inp in (bf16, f32):
+            g = inp.generator
+            enc = g.encode(updated[None, sel], m[None, sel], upd_masks[None, sel])
+            pred = g.forward_encoded(enc, (comp_f[None, pair], comp_b[None, pair]), m[None, sel],
+                                     upd_masks[None, sel], len(ns), masked_windows=mw)
+            preds.append(((pred[0] + 1.0) / 2.0 * 255.0).clamp(0, 255).to(torch.uint8).cpu())
+        inside = torch.from_numpy(hole > 0).expand_as(preds[0])
+        diff = (preds[0].int() - preds[1].int()).abs()[inside]
+        u8_max, u8_mean = int(diff.max()), float(diff.float().mean())
+        sat = float(((preds[1] == 0) | (preds[1] == 255))[inside].float().mean())
+        log(f"[m] one band window ({len(ns)} local + {len(rs)} ref frames of "
+            f"{ymax - ymin}x{W}), generator bf16 vs fp32 on the card: uint8 inside the hole max "
+            f"{u8_max} (limit {PP_BF16_MAX_U8}), mean {u8_mean:.4f} (limit {PP_BF16_MEAN_U8}); "
+            f"fp32 output saturated at 0 or 255 in {100 * sat:.1f}% of the hole; completed flow "
+            f"|mean| {float(comp_f.abs().mean()):.3f} px, RAFT flow |max| "
+            f"{float(flows_f.abs().max()):.2f} px")
+        if u8_max > PP_BF16_MAX_U8 or u8_mean > PP_BF16_MEAN_U8:
+            raise AssertionError(f"[m] ProPainter bf16 vs fp32: max {u8_max}, mean {u8_mean:.4f}")
+        out.update({"bf16_vs_fp32_u8_max": u8_max, "bf16_vs_fp32_u8_mean": u8_mean,
+                    "fp32_saturated_share": sat,
+                    "limits": {"flow_px": PP_FLOW_TOL, "generator": PP_GEN_TOL,
+                               "u8_max": PP_BF16_MAX_U8, "u8_mean": PP_BF16_MEAN_U8}})
+    return out
+
+
+class CountingInpainter:
+    """Passes calls on to an inpainter and keeps each call's frame count
+    and wall seconds (to the device's end)."""
+
+    def __init__(self, inner):
+        self.inner, self.calls, self.seconds = inner, [], 0.0
+
+    def __call__(self, frames, mask):
+        self.calls.append(len(frames))
+        out, dt = timed(lambda: self.inner(frames, mask))
+        self.seconds += dt
+        return out
+
+
+class PropainterDetector(FixedDetector):
+    """(f)'s fixed map plus frame 80 alone, a one-frame range for LaMa."""
+
+    def find_subtitle_frame_no(self, sub_remover=None):
+        return {**super().find_subtitle_frame_no(), 80: [(560, 1360, 950, 1010)]}
+
+
+def phase_n(card, video, tmp, inpainter):
+    from vsr_tpu_torch.config import Config, InpaintMode
+    from vsr_tpu_torch.io.video import read_video_info
+    from vsr_tpu_torch.masks.intervals import (
+        batch_generator, find_continuous_ranges_with_same_mask, split_range_by_scene)
+    from vsr_tpu_torch.pipeline import SubtitleRemover
+    from vsr_tpu_torch.scenes.content import get_scene_div_frame_no
+
+    # a user's process: PyTorch's defaults (phase m turned cuDNN's TF32 off)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_path = os.path.join(tmp, "propainter_out.mp4")
+    remover = SubtitleRemover(video, output_path=out_path,
+                              config=Config(compute_dtype="bfloat16",
+                                            inpaint_mode=InpaintMode.PROPAINTER),
+                              device=inpainter.device)
+    remover._detector = PropainterDetector()
+    remover._propainter = counting = CountingInpainter(inpainter)
+    cuts, dt_scenes = timed(lambda: get_scene_div_frame_no(video))
+    ranges = split_range_by_scene(find_continuous_ranges_with_same_mask(
+        remover._detector.find_subtitle_frame_no()), cuts)
+    _, dt, stages = stage_times(inpainter, remover.run)
+    info = read_video_info(out_path)
+    log(f"[n] SubtitleRemover.run() propainter on the mp4: scene cuts {cuts}, ranges {ranges}, "
+        f"ProPainter clips {counting.calls}, LaMa for frame 80; {info.frame_count} frames "
+        f"{info.width}x{info.height} written in {dt:.2f} s ({N_FRAMES / dt:.2f} frames/s end to "
+        f"end, mp4v) on {card}; of it ProPainter {counting.seconds:.2f} s (" +
+        ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items()) +
+        f"), scene detection ~{dt_scenes:.2f} s (timed apart), the rest LaMa (built by the "
+        f"remover), decode, encode")
+    clips = sorted(len(b) for s, e in ranges for b in batch_generator(
+        range(s, e + 1), remover.config.propainter_max_load_num) if len(b) > 1)
+    if sorted(counting.calls) != clips or remover._lama is None:
+        raise AssertionError(f"[n] ProPainter clips {counting.calls}, LaMa built: "
+                             f"{remover._lama is not None}")
+    if (info.frame_count, info.width, info.height) != (N_FRAMES, W, H):
+        raise AssertionError(f"[n] output {info}, expected {N_FRAMES} frames {W}x{H}")
+    return {"run_s": dt, "propainter_s": counting.seconds, "stage_ms": stages,
+            "scene_detection_s": dt_scenes, "scene_cuts": cuts,
+            "propainter_clips": counting.calls}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -994,6 +1326,12 @@ def main(argv) -> int:
         done("j")
         detection_mobile = phase_e(card, video, "k", "PP_OCRv5_MOBILE")
         done("k")
+        pp_bf16, pp_run = phase_l(card, frames, mask, "--profile" in argv)
+        done("l")
+        pp_run["card_vs_cpu"] = phase_m(card, frames, mask, pp_bf16)
+        done("m")
+        pp_run["remover"] = phase_n(card, video, tmp, pp_bf16)
+        done("n")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # one sttn-auto transformer block's two kernel scales, as that path calls them
@@ -1029,6 +1367,8 @@ def main(argv) -> int:
         "lama_card_vs_cpu": lama_vs_cpu,
         "picture_s": picture_s,
         "detection_mobile": detection_mobile,
+        "fps_1080p_bf16_propainter": pp_run.pop("fps"),
+        "propainter": pp_run,
         "card": card,
     }]}))
     print(json.dumps({"ok": True, "device": {

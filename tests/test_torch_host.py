@@ -63,6 +63,76 @@ def test_inpaint_area_by_mask(seed):
                 == jax_solver.get_inpaint_area_by_mask(W, H, h, arr))
 
 
+@pytest.mark.parametrize("seed", range(6))
+def test_inpaint_area_by_mask_multiple(seed):
+    """ProPainter's bands, rounded to a multiple of 8 (and of 16)."""
+    rng = np.random.default_rng(150 + seed)
+    H, W = ((720, 1280), (1080, 1920), (101, 203))[seed % 3]
+    m = jax_mask.create_mask((H, W), _boxes(rng, H, W, int(rng.integers(1, 6))), 10)
+    h = int(W * 3 / 16)
+    for multiple in (8, 16):
+        got = solver.get_inpaint_area_by_mask(W, H, h, m, multiple=multiple)
+        assert got == jax_solver.get_inpaint_area_by_mask(W, H, h, m, multiple=multiple)
+        for ymin, ymax, xmin, xmax in got:
+            assert (ymax - ymin) % multiple == 0 and (xmax - xmin) % multiple == 0
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_range_by_scene(seed):
+    rng = np.random.default_rng(700 + seed)
+    for n in (0, 1, 7, 40):
+        ranges = intervals.find_continuous_ranges_with_same_mask(_box_dict(rng, n * 5))
+        points = [int(p) for p in rng.integers(1, 300, int(rng.integers(0, 12)))]
+        assert (intervals.split_range_by_scene(ranges, points)
+                == jax_intervals.split_range_by_scene(ranges, points))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_scene_scores_bit_identical(seed):
+    """frame_scores on random HSV stacks, the downscale factor, and the
+    detector's defaults."""
+    from vsr_tpu.scenes import content as jax_content
+    from vsr_tpu_torch.scenes import content
+
+    rng = np.random.default_rng(800 + seed)
+    hsv = rng.integers(0, 256, (int(rng.integers(2, 9)), 24, 40, 3), np.uint8)
+    weights = tuple(float(w) for w in rng.uniform(0, 2, 3))
+    np.testing.assert_array_equal(content.frame_scores(hsv, weights),
+                                  jax_content.frame_scores(hsv, weights))
+    for width in (100, 255, 256, 640, 1920):
+        assert (content.compute_downscale_factor(width)
+                == jax_content.compute_downscale_factor(width))
+    assert (dataclasses.asdict(content.ContentDetectorParams())
+            == dataclasses.asdict(jax_content.ContentDetectorParams()))
+
+
+@pytest.mark.parametrize("threshold", [12.0, 27.0])
+def test_scene_cuts_bit_identical(threshold, tmp_path):
+    """detect_scene_cuts / get_scene_div_frame_no on a 90-frame mp4 with
+    three hard cuts and a slow fade."""
+    import cv2
+
+    from vsr_tpu.scenes import content as jax_content
+    from vsr_tpu_torch.scenes import content
+
+    path = str(tmp_path / "cuts.mp4")
+    rng = np.random.default_rng(9)
+    colours = rng.integers(0, 256, (4, 3))
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 24, (320, 96))
+    for i in range(90):
+        frame = np.full((96, 320, 3), colours[min(i // 20, 3)], np.uint8)
+        frame[:, : 3 * i % 320] //= 2 if i % 7 else 1
+        writer.write(frame)
+    writer.release()
+    params = (content.ContentDetectorParams(threshold=threshold),
+              jax_content.ContentDetectorParams(threshold=threshold))
+    got = content.detect_scene_cuts(path, params[0], batch=16)
+    assert got == jax_content.detect_scene_cuts(path, params[1], batch=16)
+    assert len(got) >= 3
+    assert (content.get_scene_div_frame_no(path, params[0])
+            == jax_content.get_scene_div_frame_no(path, params[1]))
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_ab_sections(seed):
     rng = np.random.default_rng(200 + seed)

@@ -129,7 +129,7 @@ def test_cli_end_to_end(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,item", [
     (["-i", "x.mp4", "--warmup"], "item 4"),
-    (["-i", "x.mp4", "--inpaint-mode", "propainter"], "item 8"),
+    (["-i", "x.mp4", "--check-update"], "item 4"),
     (["--gui"], "item 11"),
 ])
 def test_cli_unported_modes_exit_with_roadmap_item(argv, item, capsys):
@@ -186,6 +186,8 @@ def test_port_never_imports_jax():
         "except SystemExit as e:\n"
         "    assert e.code == 0\n"
         "assert 'vsr_tpu_torch.pipeline' in sys.modules and 'chip_smoke' in sys.modules\n"
+        "assert {'vsr_tpu_torch.inpaint.propainter', 'vsr_tpu_torch.models.propainter.raft',\n"
+        "        'vsr_tpu_torch.ops.deform_conv', 'vsr_tpu_torch.scenes.content'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'vsr_tpu'))\n"
         "print(len(names), bad)\n"
         "raise SystemExit(1 if bad else 0)\n"
@@ -214,6 +216,7 @@ def test_port_sources_do_not_import_vsr_tpu():
     found = []
     sources = _port_sources()
     assert len(sources) > 20
+    assert any(p.endswith(os.path.join("models", "propainter", "generator.py")) for p in sources)
     for path in sources:
         tree = ast.parse(open(path).read(), filename=path)
         for node in ast.walk(tree):

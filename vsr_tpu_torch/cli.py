@@ -1,14 +1,13 @@
 """Command line of the port:
 
     python -m vsr_tpu_torch -i in.mp4 [-o out.mp4] [-c YMIN YMAX XMIN XMAX ...]
-                            [--inpaint-mode sttn-auto|sttn-det|lama|opencv]
+                            [--inpaint-mode sttn-auto|sttn-det|lama|propainter|opencv]
                             [--models DIR] [--device cuda]
     python -m vsr_tpu_torch -i picture.png [-o out.png]   (detection + LaMa;
                             default output no_sub/picture.png)
 
 The flags and defaults are those of ``vsr_tpu.cli`` plus ``--device``. A
-mode (propainter) or flag that is not ported yet exits with an error naming
-its ROADMAP.md item.
+flag that is not ported yet exits with an error naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -81,12 +80,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         if getattr(args, flag) not in (None, False):
             parser.error(f"--{flag.replace('_', '-')} is not ported to vsr_tpu_torch "
                          f"yet (ROADMAP.md Queue 1 item {item})")
-    from vsr_tpu_torch.pipeline import UNPORTED_MODES
-
     mode = InpaintMode(args.inpaint_mode)
-    if mode in UNPORTED_MODES:
-        parser.error(f"--inpaint-mode {mode.value} is not ported to vsr_tpu_torch yet "
-                     f"(ROADMAP.md Queue 1 item {UNPORTED_MODES[mode]})")
     if not args.input:
         parser.error("--input/-i is required")
     # --config wins; otherwise the reference's config/config.json convention

@@ -2,8 +2,8 @@
 
 STTN: inverts the key map of ``vsr_tpu/convert/torch_sttn.py`` (copied here:
 that module imports jax) and transposes conv kernels HWIO -> OIHW.
-DBNet and LaMa: the port's modules carry the flax names, so the map is
-structural (see dbnet_state_dict_from_flax, lama_state_dict_from_flax).
+DBNet, LaMa and ProPainter's three networks: the port's modules carry the
+flax names, so the map is structural (see _structural_state_dict).
 """
 
 from __future__ import annotations
@@ -76,21 +76,34 @@ def sttn_state_dict_from_flax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor
 
 
 # flax leaf -> torch entry, per variable collection (params/scale is a
-# BatchNorm's)
+# BatchNorm's or a LayerNorm's weight; pool_kernel / pool_bias sit on
+# ProPainter's SparseWindowAttention itself)
 _FLAX_LEAVES = {
-    "params": {"kernel": "weight", "bias": "bias", "scale": "weight"},
+    "params": {"kernel": "weight", "bias": "bias", "scale": "weight",
+               "pool_kernel": "pool_kernel", "pool_bias": "pool_bias"},
     "batch_stats": {"mean": "running_mean", "var": "running_var"},
 }
 # LCNetV3's LearnableAffineBlock modules (``lab``, ``act_lab``): flax params
 # ``scale`` and ``bias``, both of shape (1,), and nothing else
 _AFFINE_MODULES = ("lab", "act_lab")
 _AFFINE_LEAVES = {"scale": "weight", "bias": "bias"}
+# a kernel's axes, by rank: Dense (in, out) -> Linear (out, in); Conv HWIO
+# -> OIHW (a depthwise (k, k, 1, C) -> (C, 1, k, k); an
+# nn.ConvTranspose(transpose_kernel=True) (kh, kw, O, I) -> ConvTranspose2d
+# (I, O, kh, kw)); Conv3d DHWIO -> OIDHW
+_KERNEL_AXES = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+# flax module names that are nn.Module attributes in torch (``forward``)
+_TORCH_NAMES = {"forward": "forward_sweep", "backward": "backward_sweep"}
 
 
 def _structural_state_dict(flat: Mapping[str, Any], what: str,
                            skip=lambda module: False) -> Dict[str, torch.Tensor]:
     """Flax variables -> state dict of a port module that carries the flax
-    module names: the map shared by the DBNet and LaMa converters."""
+    module names: the map shared by every converter but STTN's. Module paths
+    map by name ('/' -> '.', with _TORCH_NAMES), leaves by _FLAX_LEAVES,
+    kernels by rank (_KERNEL_AXES). Params that sit on a module itself
+    (``align/kernel``) map like a child's. An ``nn.scan`` broadcasts its
+    params over time, so its tree holds one copy, mapped as any other."""
     state: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(flat).items():
         collection, rest = path.split("/", 1)
@@ -105,13 +118,27 @@ def _structural_state_dict(flat: Mapping[str, Any], what: str,
         if leaf not in leaves:
             raise KeyError(f"unrecognized {what} param: {path}")
         arr = np.array(value, dtype=np.float32)
-        if leaf == "kernel":
-            arr = arr.transpose(3, 2, 0, 1)
-        name = module.replace("/", ".")
+        if leaf in ("kernel", "pool_kernel"):
+            if arr.ndim not in _KERNEL_AXES:
+                raise KeyError(f"unrecognized {what} kernel rank {arr.ndim}: {path}")
+            arr = arr.transpose(_KERNEL_AXES[arr.ndim])
+        name = ".".join(_TORCH_NAMES.get(part, part) for part in module.split("/"))
         state[f"{name}.{leaves[leaf]}"] = torch.from_numpy(np.ascontiguousarray(arr))
         if leaf == "mean":
             state[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return state
+
+
+def _checked_state_dict(flat: Mapping[str, Any], modules: "re.Pattern", what: str,
+                        skip=lambda module: False) -> Dict[str, torch.Tensor]:
+    """_structural_state_dict after checking that every module path is one
+    of the model's (``modules``); another raises."""
+    flat = _flatten(flat)
+    for path in flat:
+        module = path.split("/", 1)[-1].rsplit("/", 1)[0]
+        if not skip(module) and not modules.fullmatch(module):
+            raise KeyError(f"unrecognized {what} module: {path}")
+    return _structural_state_dict(flat, what, skip)
 
 
 def dbnet_state_dict_from_flax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -154,9 +181,44 @@ def lama_state_dict_from_flax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor
     mean and var -> weight, bias, running_mean, running_var. A module that
     is not the generator's, or an unknown leaf or collection, raises.
     """
-    flat = _flatten(flat)
-    for path in flat:
-        module = path.split("/", 1)[-1].rsplit("/", 1)[0]
-        if not _LAMA_MODULE.fullmatch(module):
-            raise KeyError(f"unrecognized LaMa module: {path}")
-    return _structural_state_dict(flat, "LaMa")
+    return _checked_state_dict(flat, _LAMA_MODULE, "LaMa")
+
+
+# ProPainter's networks (vsr_tpu/models/propainter/), '/'-joined module paths
+_RAFT_MODULE = re.compile(
+    r"(fnet|cnet)/(conv1|conv2|norm1/bn|layer[0-5]/(conv1|conv2|down|norm[123]/bn))"
+    r"|step/update/(encoder/conv(c1|c2|f1|f2)?|gru/conv[zrq][12]|flow[12]|mask[12])")
+_FLOW_MODULE = re.compile(
+    r"down|enc[12][ab]/conv[12]|mid[0-2]|prop/fusion|(dec2a|dec2b|dec1a|dec1b|upa|upb)/conv"
+    r"|prop/(backward|forward)/(align(/off[0-3]/conv)?|bb[12]/conv)")
+_PROPAINTER_MODULE = re.compile(
+    r"encoder/c[0-8]|ss/embedding|sc/(embedding|bias_conv)|dec_(deconv0|conv1|deconv1|conv2)"
+    r"|feat_prop_module/((backward|forward)/(align(/off[0-3])?|bb[01])|fuse[01])"
+    r"|block\d+/(norm[12]|attention(/(query|key|value|proj))?|mlp/fc[12])")
+
+
+def raft_state_dict_from_flax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax RAFT variables ('params' and the context net's 'batch_stats',
+    nested or '/'-joined) -> the port's RAFT state dict. The update block
+    sits under the GRU scan's name (``step/update/...``), one copy: the
+    scan broadcasts it over the iterations. A module that is not RAFT's, or
+    an unknown leaf or collection, raises."""
+    return _checked_state_dict(flat, _RAFT_MODULE, "RAFT")
+
+
+def flow_completion_state_dict_from_flax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax RecurrentFlowCompleteNet params -> the port's state dict. Conv3d
+    kernels DHWIO -> OIDHW; each sweep's alignment kernel and bias sit on
+    ``prop/<sweep>/align`` itself. The training-only edge head (``edge/``)
+    is dropped. Another unknown module or leaf raises."""
+    return _checked_state_dict(flat, _FLOW_MODULE, "flow completion",
+                               skip=lambda module: module.startswith("edge/"))
+
+
+def propainter_state_dict_from_flax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ProPainterGenerator params -> the port's state dict. Dense
+    kernels (in, out) -> Linear (out, in); the depthwise ``pool_kernel``
+    (ph, pw, 1, C) -> (C, 1, ph, pw); LayerNorm scale -> weight; the
+    feature-propagation sweeps' params, one copy each under their scan's
+    name. An unknown module or leaf raises."""
+    return _checked_state_dict(flat, _PROPAINTER_MODULE, "ProPainter")

@@ -1,6 +1,6 @@
-"""Weight loading for the STTN, DBNet and LaMa models: converted .npz,
-reference .pth (STTN), or a seeded random init (this repo ships no trained
-weights)."""
+"""Weight loading for the STTN, DBNet, LaMa and ProPainter models: converted
+.npz, reference .pth (STTN), or a seeded random init (this repo ships no
+trained weights)."""
 
 from __future__ import annotations
 
@@ -15,29 +15,36 @@ from torch import nn
 
 from vsr_tpu_torch.convert.from_flax import (
     dbnet_state_dict_from_flax,
+    flow_completion_state_dict_from_flax,
     lama_state_dict_from_flax,
+    propainter_state_dict_from_flax,
+    raft_state_dict_from_flax,
     sttn_state_dict_from_flax,
 )
 from vsr_tpu_torch.detect.backbones import LearnableAffineBlock
 
 
 def init_random_(model: nn.Module, seed: int = 0) -> None:
-    """LeCun-normal conv kernels and zero biases (the flax defaults), drawn
-    from a torch.Generator seeded with ``seed`` on the CPU. BatchNorm layers
+    """LeCun-normal kernels and zero biases (the flax defaults), drawn from a
+    torch.Generator seeded with ``seed`` on the CPU. BatchNorm, LayerNorm
     and LCNetV3's affine blocks get flax's start values instead: scale 1,
-    bias 0 (and BatchNorm mean 0, var 1)."""
-    bn = [m for m in model.modules()
-          if isinstance(m, (nn.modules.batchnorm._BatchNorm, LearnableAffineBlock))]
-    bn_params = {id(p) for m in bn for p in m.parameters(recurse=False)}
+    bias 0 (and BatchNorm mean 0, var 1); ProPainter's ``pool_kernel`` the
+    average, 1 / (ph * pw)."""
+    norms = [m for m in model.modules()
+             if isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm,
+                               LearnableAffineBlock))]
+    norm_params = {id(p) for m in norms for p in m.parameters(recurse=False)}
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for m in bn:
+        for m in norms:
             m.reset_parameters()  # weight 1, bias 0, running mean 0, var 1
         for name, p in model.named_parameters():
-            if id(p) in bn_params:
+            if id(p) in norm_params:
                 continue
-            if name.endswith(".bias"):
+            if name.endswith("bias"):  # .bias, and pool_bias
                 p.zero_()
+            elif name.endswith(".pool_kernel"):
+                p.fill_(1.0 / p[0].numel())
             else:
                 fan_in = p[0].numel()
                 w = torch.randn(p.shape, generator=gen) / math.sqrt(fan_in)
@@ -106,4 +113,32 @@ def load_lama_weights(model: nn.Module, checkpoint_path: Optional[str] = None,
     path: seeded random init with flax's BatchNorm start values, with a
     warning when a path was given."""
     _load_or_init(model, checkpoint_path, seed, lama_state_dict_from_flax,
+                  torch_checkpoints=False)
+
+
+def load_raft_weights(model: nn.Module, checkpoint_path: Optional[str] = None,
+                      seed: int = 0) -> None:
+    """Fill a RAFT's parameters and its context net's BatchNorm statistics
+    in place. ``.npz``: the JAX package's RAFT variables (raft.npz,
+    converted with raft_state_dict_from_flax); a reference raft-things.pth
+    reaches it through the JAX package's converter (``--prepare-models``).
+    A ``.pth`` path raises. Missing or absent path: seeded random init,
+    with a warning when a path was given."""
+    _load_or_init(model, checkpoint_path, seed, raft_state_dict_from_flax,
+                  torch_checkpoints=False)
+
+
+def load_flow_completion_weights(model: nn.Module, checkpoint_path: Optional[str] = None,
+                                 seed: int = 0) -> None:
+    """Fill a RecurrentFlowCompleteNet in place from flow_completion.npz
+    (flow_completion_state_dict_from_flax); as load_raft_weights otherwise."""
+    _load_or_init(model, checkpoint_path, seed, flow_completion_state_dict_from_flax,
+                  torch_checkpoints=False)
+
+
+def load_propainter_weights(model: nn.Module, checkpoint_path: Optional[str] = None,
+                            seed: int = 0) -> None:
+    """Fill a ProPainterGenerator in place from propainter.npz
+    (propainter_state_dict_from_flax); as load_raft_weights otherwise."""
+    _load_or_init(model, checkpoint_path, seed, propainter_state_dict_from_flax,
                   torch_checkpoints=False)

@@ -5,8 +5,8 @@ Behavioural parity with the pure-function half of the reference's
 expand_frame_ranges:244-301, is_frame_number_in_ab_sections:303-321) and the
 static helpers of ``backend/tools/subtitle_detect.py`` (unify_regions:181-215,
 find_continuous_ranges:218-235, find_continuous_ranges_with_same_mask:238-258,
-filter_and_merge_intervals:260-293). All functions are pure and host-side.
-``split_range_by_scene`` comes with ProPainter mode.
+filter_and_merge_intervals:260-293, split_range_by_scene:134-155). All
+functions are pure and host-side.
 """
 
 from __future__ import annotations
@@ -154,6 +154,23 @@ def find_continuous_ranges_with_same_mask(
             start = cur
     ranges.append((start, numbers[-1]))
     return ranges
+
+
+def split_range_by_scene(intervals: Sequence[Range], points: List[int]) -> List[Range]:
+    """Split every interval at each scene-cut frame number in ``points``.
+
+    A point p inside (start, end) produces (start, p-1) and the remainder
+    restarts at p. (subtitle_detect.py:134-155)
+    """
+    points = sorted(points)
+    result: List[Range] = []
+    for start, end in intervals:
+        for p in (p for p in points if start <= p <= end):
+            if start < p:
+                result.append((start, p - 1))
+            start = p
+        result.append((start, end))
+    return result
 
 
 Box = Tuple[int, int, int, int]  # (xmin, xmax, ymin, ymax)

@@ -6,8 +6,8 @@ Behavioural parity with ``get_inpaint_area_by_mask``
 grouped vertically (merging islands whose combined vertical span fits in the
 band height and that have mask pixels bridging them), then each group is
 covered by one band of *exactly* height ``h`` centred on the group, clamped to
-the image. (The JAX package's rounding of bands to a multiple, which
-ProPainter needs, comes with that mode.)
+the image. With ``multiple`` > 1 (ProPainter, whose networks want sides
+divisible by 8) each band is then rounded to that multiple.
 
 Connected-component labelling is done with cv2 on the host — masks are small
 and this runs once per chunk, far off the hot path.
@@ -95,8 +95,40 @@ def _fit_band(min_y: int, max_y: int, center_y: int, h: int, H: int) -> Tuple[in
     return ymin, ymax
 
 
+def _round_to_multiple(
+    ymin: int, ymax: int, xmin: int, xmax: int, multiple: int, H: int
+) -> Band:
+    """Adjust band height/width to a multiple: symmetric growth first, then
+    symmetric shrink, then one-sided growth/shrink. (ref :189-235)"""
+    height = ymax - ymin
+    rem = height % multiple
+    if rem != 0:
+        grow = multiple - rem
+        cy = (ymin + ymax) / 2
+        if ymin - grow / 2 >= 0 and ymax + grow / 2 <= H:
+            ymin = int(cy - height / 2 - grow / 2)
+            ymax = int(cy + height / 2 + grow / 2)
+        elif height > multiple:
+            ymin = int(cy - (height - rem) / 2)
+            ymax = int(cy + (height - rem) / 2)
+        else:
+            if ymax + grow <= H:
+                ymax += grow
+            elif ymin - grow >= 0:
+                ymin -= grow
+            elif height > multiple:
+                ymax = ymin + height - rem
+    width = xmax - xmin
+    rem_w = width % multiple
+    if rem_w != 0:
+        cx = (xmin + xmax) / 2
+        xmin = int(cx - (width - rem_w) / 2)
+        xmax = int(cx + (width - rem_w) / 2)
+    return int(ymin), int(ymax), int(xmin), int(xmax)
+
+
 def get_inpaint_area_by_mask(
-    W: int, H: int, h: int, mask: np.ndarray
+    W: int, H: int, h: int, mask: np.ndarray, multiple: int = 1
 ) -> List[Band]:
     """Solve for the minimal set of full-width bands of height ``h`` covering
     the mask. Returns [(ymin, ymax, xmin, xmax), ...]; empty for a blank mask.
@@ -116,7 +148,10 @@ def get_inpaint_area_by_mask(
         max_y = max(i[1] for i in group)
         center_y = sum(i[2] for i in group) // len(group)
         ymin, ymax = _fit_band(min_y, max_y, center_y, h, H)
-        band = (int(ymin), int(ymax), 0, int(W))
+        if multiple > 1:
+            band = _round_to_multiple(ymin, ymax, 0, W, multiple, H)
+        else:
+            band = (int(ymin), int(ymax), 0, int(W))
         if band not in bands:
             bands.append(band)
     return bands

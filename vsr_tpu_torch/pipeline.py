@@ -8,9 +8,9 @@ output. Modes:
 * STTN_AUTO — fixed-area streaming temporal inpaint (ref main.py:247-258)
 * STTN_DET / LAMA / OPENCV — detection-driven batch inpaint (ref
   main.py:260-333)
+* PROPAINTER — detection, scene split, ProPainter batches and LaMa for
+  single frames (ref main.py:159-245)
 * picture input — detection + LaMa on one image (ref main.py:353-371)
-
-ProPainter is not ported yet and raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -34,25 +34,16 @@ from vsr_tpu_torch.masks.intervals import (
     expand_frame_ranges,
     filter_and_merge_intervals,
     find_continuous_ranges_with_same_mask,
+    split_range_by_scene,
 )
 from vsr_tpu_torch.masks.mask import create_mask
 from vsr_tpu_torch.utils.device import resolve_device
 
 IMAGE_EXTENSIONS = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
 
-# ROADMAP.md Queue 1 item that ports each mode still missing
-UNPORTED_MODES = {
-    InpaintMode.PROPAINTER: "8",
-}
-
 
 def is_image_file(path: str) -> bool:
     return os.path.splitext(str(path))[-1].lower() in IMAGE_EXTENSIONS
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to vsr_tpu_torch yet (ROADMAP.md Queue 1 item {item})")
 
 
 class SubtitleRemover:
@@ -109,6 +100,7 @@ class SubtitleRemover:
         self._sttn_auto = None
         self._sttn_det = None
         self._lama = None
+        self._propainter = None
         self._detector = None
 
     # ---- observability ----
@@ -167,7 +159,13 @@ class SubtitleRemover:
 
     @property
     def propainter_inpaint(self):
-        _not_ported("ProPainter inpainting", "8")
+        if self._propainter is None:
+            from vsr_tpu_torch.inpaint.propainter import PropainterInpainter
+
+            self._propainter = PropainterInpainter(
+                checkpoint_dir=self.checkpoint_dir or None, config=self.config,
+                device=self.device)
+        return self._propainter
 
     @property
     def detector(self):
@@ -286,6 +284,59 @@ class SubtitleRemover:
                         coords.append(area)
         return coords
 
+    def _propainter_mode(self, writer) -> None:
+        """Detection, scene split and ProPainter batches (ref main.py:159-245):
+        each run of frames that share one box set, cut at scene changes, goes
+        to ProPainter in batches of propainter_max_load_num; a single frame
+        (a run's or a batch's) goes to LaMa."""
+        from vsr_tpu_torch.scenes.content import get_scene_div_frame_no
+
+        self.append_output(tr.text("Main", "ProcessingStartFindingSubtitles"))
+        sub_list = self.detector.find_subtitle_frame_no(sub_remover=self)
+        self.append_output(tr.text("Main", "FinishedFindingSubtitles"))
+        if not sub_list:
+            raise RuntimeError(
+                tr.text("Main", "NoSubtitleDetected", self.video_path))
+        ranges = find_continuous_ranges_with_same_mask(sub_list)
+        ranges = split_range_by_scene(ranges, get_scene_div_frame_no(self.video_path))
+
+        reader = FramePrefetcher(VideoReader(self.video_path))
+        try:
+            index = 0
+            while True:
+                ok, frame = reader.read()
+                if not ok:
+                    break
+                index += 1
+                if index not in sub_list:
+                    writer.write(frame)
+                    self._progress(1)
+                    continue
+                end_no = next((e for s, e in ranges if s <= index <= e), index)
+                frames = [frame]
+                while index < end_no:
+                    ok, frame = reader.read()
+                    if not ok:
+                        break
+                    index += 1
+                    frames.append(frame)
+                # collection starts on a detected frame and ranges are runs of
+                # consecutive keys, so the start is a key: index it directly
+                # (ref main.py:229) and let a timeline bug raise
+                mask = create_mask(self.mask_size, sub_list[index - len(frames) + 1],
+                                   self.config.subtitle_area_deviation_pixel)
+                for batch in batch_generator(frames, self.config.propainter_max_load_num):
+                    if len(batch) == 1:
+                        outs = [self.lama_inpaint.inpaint(batch[0], mask)]
+                    else:
+                        outs = self.propainter_inpaint(list(batch), mask)
+                    for src, out_frame in zip(batch, outs):
+                        writer.write(out_frame)
+                        self._preview(src, mask, out_frame)
+                    self._progress(len(batch))
+        finally:
+            reader.release()
+
     def _run_picture(self) -> None:
         """Single-image removal via detection + LaMa (ref main.py:353-371):
         the whole model output is written, as the reference does."""
@@ -306,8 +357,6 @@ class SubtitleRemover:
     # ---- main entry ----
     def run(self) -> None:
         mode = self.config.inpaint_mode
-        if mode in UNPORTED_MODES and not self.is_picture:
-            _not_ported(f"inpaint mode {mode.value}", UNPORTED_MODES[mode])
         start_time = time.time()
         if not self.sub_areas:
             self.append_output(tr.text("Main", "FullScreenProcessingNote"))
@@ -349,6 +398,8 @@ class SubtitleRemover:
                 self._video_inpaint_mode(writer, self.sttn_det_inpaint)
             elif mode == InpaintMode.LAMA:
                 self._video_inpaint_mode(writer, self.lama_inpaint)
+            elif mode == InpaintMode.PROPAINTER:
+                self._propainter_mode(writer)
             elif mode == InpaintMode.OPENCV:
                 from vsr_tpu_torch.inpaint.opencv import OpenCVInpainter
 

@@ -24,6 +24,19 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
+def items_per_chunk(device: torch.device, requested: int, bytes_per_item: float,
+                    fraction: float = 0.5) -> int:
+    """How many items of ``bytes_per_item`` fit in ``fraction`` of the free
+    device memory (the driver's free memory plus what PyTorch's allocator
+    holds unused): at most ``requested``, at least 1. Returns ``requested``
+    on the CPU."""
+    if device.type != "cuda":
+        return requested
+    free, _ = torch.cuda.mem_get_info(device)
+    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return max(1, min(requested, int(free * fraction // max(bytes_per_item, 1))))
+
+
 def adaptive_clip_len(
     device: torch.device, requested: int, frame_h: int, frame_w: int,
     bytes_per_pixel_frame: float = 24.0, minimum: int = 10,
