@@ -15,11 +15,15 @@ non-zero and prints no result line):
       bias masking some keys and one masking every key; max error and, in
       bf16, the error's norm against the output's, each held to a limit
       below (kernel_faults.py shows the norm check catching faults that
-      the element-wise one misses); each side's time, the bound (the larger of 4 N^2 D over the peak rate and
-      the bytes of q, k, v, bias and out over the memory rate), and the time
-      of torch's scaled_dot_product_attention with the same float mask
-      (library_ms, the yardstick; the port never calls it) with the backend
-      that served it;
+      the element-wise one misses); each side's time, the bound (the larger
+      of the operations over the peak rate and the bytes of q, k, v, bias
+      and out over the memory rate; the operations are 4 N^2 D in bf16 and
+      3 x 4 N^2 D at the TF32 rate in fp32, the kernel's 3xTF32, with 4 N^2
+      D at the fp32 FMA rate printed beside it), the device time of each
+      CUDA kernel of a call, and the time of torch's
+      scaled_dot_product_attention with the same float mask (library_ms,
+      the yardstick; the port never calls it) with the backend that served
+      it;
   (c) the main path: STTNAutoInpainter.process_video in bf16 on 100
       synthetic 1920x1080 frames (2 chunks of 50) under the bottom-band
       subtitle mask, full model width, seeded random weights, MAIN_RUNS timed
@@ -33,6 +37,9 @@ non-zero and prints no result line):
       kernel and again with the model's token attention routed to
       token_attention_reference, in fp32 (max uint8 difference <= 2) and in
       bf16 (max and mean uint8 difference inside the mask, limits below);
+      then the fp32 main path: process_video on (c)'s 100 frames through the
+      kernel, TF32 off, one warm and MAIN_RUNS timed runs checked as in (c)
+      (fps_1080p_fp32);
   (e) detection at full width: a synthetic 100-frame 1920x1080 30 fps mp4
       (written with cv2, subtitle text on frames 11-40 and 61-70) through
       SubtitleDetector.find_subtitle_frame_no (PP-OCRv5 server DBNet,
@@ -155,9 +162,12 @@ MAX_U8_DIFF = 2  # fp32: kernel route against plain route
 # Twice the max and ~5x the mean leave room for other seeds and cards and
 # still catch a wrong kernel (which moves the mean by tens of uint8).
 BF16_MAX_U8_DIFF, BF16_MEAN_U8_DIFF = 8, 0.5
-# NVIDIA's data sheet for the H100 SXM, dense: bf16 on the tensor cores,
-# fp32 outside them, and the HBM3 rate
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# NVIDIA's data sheet for the H100 SXM, dense: bf16 and TF32 on the tensor
+# cores, fp32 outside them, and the HBM3 rate
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
+# fp32-accurate products on the tensor cores take three tf32 products each
+# (3xTF32: lo hi + hi lo + hi hi of split operands), the kernel's fp32 route
+TF32_PASSES = 3
 MEM_BYTES_PER_S = 3.35e12
 OUT_DIR = "chiprun_out"
 # LaMa: the card's fp32 (TF32 off) sigmoid output against the CPU's, the
@@ -248,12 +258,22 @@ def host_ms(fn, iters: int) -> float:
 
 
 def bound_ms(B: int, N: int, D: int, dtype: str):
-    """Least time the card could take for one call, and what sets it."""
+    """Least time the card could take for one call, and what sets it. fp32
+    work is held to fp32 accuracy on the tensor cores: 3 x 4 N^2 D at the
+    TF32 rate, which is less time than 4 N^2 D at the FMA rate (fma_bound_ms)."""
     flops = 4.0 * B * N * N * D
     elem = 2 if dtype == "bfloat16" else 4
     nbytes = 4.0 * B * N * D * elem + 4.0 * B * N  # q, k, v read, out written; fp32 bias
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / MEM_BYTES_PER_S
+    t_ops = (flops / PEAK_FLOPS["bfloat16"] if dtype == "bfloat16"
+             else TF32_PASSES * flops / PEAK_FLOPS["tf32"])
+    t_bytes = nbytes / MEM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def fma_bound_ms(B: int, N: int, D: int) -> float:
+    """4 N^2 D at the fp32 FMA rate: the bound before the route used the
+    tensor cores, printed for comparison."""
+    return 1e3 * 4.0 * B * N * N * D / PEAK_FLOPS["float32"]
 
 
 def compare(got, ref):
@@ -369,10 +389,12 @@ def phase_b(card):
             bms, bound_by = bound_ms(B, N, D, name)
             split = device_split(lambda: flash_token_attention(qd, kd, vd, some))
             enqueue_ms = host_ms(lambda: flash_token_attention(qd, kd, vd, some), 10)
+            fma = (f"; 4 N^2 D at the fp32 FMA rate {fma_bound_ms(B, N, D):.4f} ms"
+                   if dtype == torch.float32 else "")
             log(f"[b] {scale} {name}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"library {library_ms:.4f} ms (sdpa {backend}, max |err| {lib_err:.2e}), "
                 f"bound {bms:.4f} ms ({bound_by}), kernel at {100 * bms / kernel_ms:.1f}% "
-                f"of bound, on {card}")
+                f"of bound{fma}, on {card}")
             log(f"[b] {scale} {name}: device time by kernel (profiler) " +
                 ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()) +
                 f"; host time to enqueue a call {enqueue_ms:.4f} ms")
@@ -444,7 +466,7 @@ def phase_c(card, frames, mask, profile):
         launches = token_attention.launches
         engine = next(iter(inpainter._engines.values()))
         chunks = -(-len(frames) // clip)
-        want = 2 * len(inpainter.model.transformer) * engine.num_windows * chunks
+        want = expected_auto_launches(inpainter, len(frames))
         log(f"[c] main path run {run + 1}: {n} frames, {chunks} chunks of {clip}, "
             f"{engine.num_windows} windows/chunk, kernel launches {launches} (expected {want})")
         if n != len(frames) or len(out) != len(frames):
@@ -466,6 +488,13 @@ def phase_c(card, frames, mask, profile):
             (inpainter, "_stack_band", "crop + resize"), (sttn_auto, "paste_band", "paste"),
             *engine_targets(inpainter)], "c")
     return launches, fps
+
+
+def expected_auto_launches(inpainter, n):
+    """sttn-auto: 2 kernel scales x 8 blocks x windows per chunk x chunks."""
+    engine = next(iter(inpainter._engines.values()))
+    chunks = -(-n // inpainter.clip_gap)
+    return 2 * len(inpainter.model.transformer) * engine.num_windows * chunks
 
 
 def profile_run(run, n, card, phase, out_name):
@@ -587,15 +616,39 @@ def check_routes(phase, make_run, mask):
     return f32_max, bf16_max, bf16_mean
 
 
-def phase_d(frames, mask):
+def phase_d(card, frames, mask):
+    """The route checks, then fp32 sttn-auto through the kernel on all the
+    frames (TF32 off, as check_routes left it): one warm run and MAIN_RUNS
+    timed runs, checked as phase c checks its runs."""
     from vsr_tpu_torch.config import Config
     from vsr_tpu_torch.inpaint.sttn_auto import STTNAutoInpainter
+    from vsr_tpu_torch.ops import token_attention
+
+    inpainters = {}
 
     def make_run(dtype):
-        inpainter = STTNAutoInpainter(config=Config(compute_dtype=dtype), device="cuda")
+        inpainters[dtype] = inpainter = STTNAutoInpainter(
+            config=Config(compute_dtype=dtype), device="cuda")
         return lambda: run_video(inpainter, frames[:inpainter.clip_gap], mask)[1]
 
-    return check_routes("d", make_run, mask)
+    diffs = check_routes("d", make_run, mask)
+    inpainter = inpainters["float32"]
+    n, _, dt = run_video(inpainter, frames, mask)
+    log(f"[d] fp32 warm pass: {n} frames in {dt:.2f} s")
+    fps = []
+    for run in range(MAIN_RUNS):
+        token_attention.launches = 0
+        n, out, dt = run_video(inpainter, frames, mask)
+        launches, want = token_attention.launches, expected_auto_launches(inpainter, len(frames))
+        if n != len(frames) or len(out) != len(frames):
+            raise AssertionError(f"[d] wrote {n} frames ({len(out)} kept) of {len(frames)}")
+        if launches != want or launches == 0:
+            raise AssertionError(f"[d] kernel launches {launches}, expected {want}")
+        check_frames(frames, out, mask, "d")
+        fps.append(n / dt)
+        log(f"[d] sttn-auto 1080p fp32 run {run + 1}: {fps[-1]:.2f} frames/s ({dt:.3f} s for "
+            f"{n} frames, kernel launches {launches}, TF32 off) on {card}")
+    return (*diffs, fps)
 
 
 def subtitle_video(path, n):
@@ -1306,7 +1359,7 @@ def main(argv) -> int:
     mask = create_mask((H, W), [(300, 1620, 960, 1040)])  # bench.py's bottom band
     launches, fps = phase_c(card, frames, mask, "--profile" in argv)
     done("c")
-    f32_diff, bf16_diff, bf16_mean = phase_d(frames, mask)
+    f32_diff, bf16_diff, bf16_mean, fps_f32 = phase_d(card, frames, mask)
     done("d")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1355,6 +1408,7 @@ def main(argv) -> int:
         "library_ms": total("library_ms"),
         "cases": cases,
         "fps_1080p_bf16": fps,
+        "fps_1080p_fp32": fps_f32,
         "full_width_u8_diff": {"float32": f32_diff, "bfloat16_max": bf16_diff,
                                "bfloat16_mean": bf16_mean},
         "launches_sttn_det": det_launches,

@@ -162,16 +162,16 @@ def test_kernel_rejects_non_contiguous(cuda_device):
     assert ta.launches == before
 
 
-def _bf16_case(seed, B, Nq, Nk, D, device, masked=0.3):
-    """bf16 q [B, Nq, D], k/v [B, Nk, D] and an fp32 bias masking about
-    `masked` of the keys, made from a seed with numpy."""
+def _bf16_case(seed, B, Nq, Nk, D, device, masked=0.3, dtype=torch.bfloat16):
+    """q [B, Nq, D], k/v [B, Nk, D] in dtype (bf16 unless given) and an fp32
+    bias masking about `masked` of the keys, made from a seed with numpy."""
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.standard_normal((B, Nq, D)).astype(np.float32))
     k, v = (torch.from_numpy(rng.standard_normal((B, Nk, D)).astype(np.float32))
             for _ in range(2))
     bias = torch.from_numpy(np.where(rng.random((B, Nk)) < masked, NEG_INF, 0.0)
                             .astype(np.float32))
-    return [t.to(device) for t in (q.bfloat16(), k.bfloat16(), v.bfloat16(), bias)]
+    return [t.to(device, dtype) for t in (q, k, v)] + [bias.to(device)]
 
 
 def _assert_bf16_close(got, want):
@@ -189,6 +189,43 @@ def test_kernel_main_path_shapes_bf16(shape, cuda_device):
     q, k, v, bias = _bf16_case(11, B, N, N, D, cuda_device)
     _assert_bf16_close(ta.flash_token_attention(q, k, v, bias),
                        ta.token_attention_reference(q, k, v, bias))
+
+
+MAIN_PATH_SHAPES = {"(5,3)": (1, 5120, 960), "(10,5)": (1, 1536, 3200),
+                    "(9,5) N=2304": (1, 2304, 2880), "(9,5) N=1728": (1, 1728, 2880)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(MAIN_PATH_SHAPES.values()), ids=list(MAIN_PATH_SHAPES))
+def test_kernel_main_path_shapes_f32(shape, cuda_device):
+    """fp32 twin of the test above: the sttn-auto and sttn-det kernel scales
+    at full size through the 3xTF32 route, within F32_TOL of the plain
+    version in fp32 (TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, N, D = shape
+    q, k, v, bias = _bf16_case(17, B, N, N, D, cuda_device, dtype=torch.float32)
+    before = ta.launches
+    got = ta.flash_token_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert ta.launches == before + 1 and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               ta.token_attention_reference(q, k, v, bias).cpu().numpy(),
+                               **F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Nq,Nk,D", [(200, 300, 300), (130, 129, 77), (5, 1000, 3200)])
+def test_kernel_f32_ragged(Nq, Nk, D, cuda_device):
+    """fp32 with B = 2, Nk not a multiple of the 128-key tile, and D not a
+    multiple of the 32-deep stage or the 160-column tile (77 also goes
+    through the aligned copy); one query tile's worth of rows or fewer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, bias = _bf16_case(18, 2, Nq, Nk, D, cuda_device, dtype=torch.float32)
+    got = ta.flash_token_attention(q, k, v, bias)
+    assert got.shape == (2, Nq, D) and got.is_contiguous()
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               ta.token_attention_reference(q, k, v, bias).cpu().numpy(),
+                               **F32_TOL)
 
 
 @pytest.mark.cuda

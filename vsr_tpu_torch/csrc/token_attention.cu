@@ -51,18 +51,54 @@
 // bytes written once and read once per column tile, the reads mostly from L2
 // since a query tile's column blocks run side by side.
 // Tensor maps are 3-D [B, N, D], so rows past N read as zeros rather than
-// the next batch's; they need D % 8 == 0 and 16-byte aligned bases (the
-// wrapper copies other inputs into an aligned, zero-padded buffer).
+// the next batch's; they need D % 8 == 0 (bf16) or D % 4 == 0 (fp32) and
+// 16-byte aligned bases (the wrapper copies other inputs into an aligned,
+// zero-padded buffer).
 //
-// fp32 inputs keep the plain FMA kernels (stats_kernel, output_kernel): a
-// stats pass over key splits and an output pass per 256-column slice that
-// recomputes the scores. They serve fp32 checks and compute_dtype="float32",
-// not the bf16 main path.
+// fp32 inputs (compute_dtype="float32", and every fp32 check) take the same
+// two-kernel split with fp32-accurate products on the tensor cores, 3xTF32:
+// each operand x is split as hi = tf32(x), lo = tf32(x - hi), both rounded
+// to nearest, and a product is lo hi + hi lo + hi hi in fp32 accumulators,
+// which leaves out only lo lo (2^-22 of the product). TF32 runs at half the
+// bf16 rate and every product is three, so the bound is 3 x 4 N^2 D over
+// 495 TFLOP/s, six times the bf16 route's: 0.61 ms at (5,3), 0.18 ms at
+// (10,5). The route is arithmetic-bound even more than bf16, and its design
+// is about keeping the tensor cores fed:
+//
+//  0. split_kernel writes k's hi and lo parts, and those of v^T ([B, D,
+//     Nk_pad], keys contiguous), once per call: wgmma takes a tf32 B operand
+//     K-major only (its transpose flag is for 16-bit types), so p v reads
+//     v^T. That is 24 N D bytes, a few percent of the call.
+//  1. score_f32_kernel, one block per (128-key tile, 128-query tile, b):
+//     streams raw Q and K's splits in 32-deep slices of D (one 128-byte
+//     swizzled row of fp32) through a 4-stage TMA ring; each warpgroup loads
+//     its Q fragments with ldmatrix, splits them in registers (A from
+//     registers) and runs three m64n128k8 tf32 wgmmas a k8 step. The
+//     epilogue is the bf16 route's, with p stored in fp32.
+//  2. pv_f32_kernel, one block per (160 columns of D, 128-query tile, b):
+//     merges the partials, streams 32-key stages of P and of v^T's splits,
+//     splits each raw P fragment in registers and runs three m64n160k8 tf32
+//     wgmmas a k8 step; the fp32 output goes out by TMA.
+// The tensor cores sum their products into the fp32 accumulators with
+// truncation, not rounding, so over the 360-1200 k8 steps of a call's sums
+// the error builds up one way, to ~1e-4 of the scores: one accumulator for
+// a whole sum misses the 2e-5 fp32 limit on the card at D = 3200
+// (scripts/tf32_sum_model.py models it). So each 32-deep stage (12 wgmmas)
+// starts a fresh accumulator, and its sum is added to the total in
+// registers with rounded fp32 adds (in p v scaled there by the key tile's
+// 2^(m_t - m) / l). Within a stage two sets of split fragments
+// alternate, so k8 step j + 1 is split while step j's products run; the
+// other warpgroup's products fill the tensor cores while one adds. 128-row
+// tiles (two consumer warpgroups; in p v a producer warpgroup hands them
+// its registers, setmaxnreg, as the bf16 p v kernel does) leave room for
+// the two sets of 64 or 80 accumulators without spills, and bring
+// operands at ~32 bytes per tensor-core clock of an SM, half what the bf16
+// route's tiles need. P is 4 Nq Nk_pad bytes, written once and read once
+// per column tile, mostly from L2.
 //
 // Plain C entry points (bound with ctypes), each returning 0 or a
 // cudaError_t (tensor-map failures: kTensorMapError + CUresult):
-// token_attention_tiles, token_attention_splits, token_attention_f32,
-// token_attention_bf16.
+// token_attention_tiles, token_attention_f32, token_attention_bf16.
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver entry point comes through the runtime
 #include <cuda_bf16.h>
@@ -566,20 +602,23 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A [n2][n1][n0] bf16 tensor read or written in [box1][box0] tiles with the
-// given swizzle; out-of-range elements load as zeros. 0 or a CUresult.
+// A [n2][n1][n0] bf16 (or fp32) tensor read or written in [box1][box0] tiles
+// with the given swizzle; out-of-range elements load as zeros. 0 or a
+// CUresult.
 int make_map(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1, uint64_t n2,
              uint32_t box0, uint32_t box1,
-             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+             CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const uint64_t elem_bytes = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const cuuint64_t dims[3] = {n0, n1, n2};
-  const cuuint64_t strides[2] = {n0 * 2, n0 * n1 * 2};
+  const cuuint64_t strides[2] = {n0 * elem_bytes, n0 * n1 * elem_bytes};
   const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                     strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return (int)encode(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, const float* bias, void* out,
@@ -628,283 +667,506 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* bias, 
 }
 
 // ---------------------------------------------------------------------------
-// fp32 route: stats_kernel + output_kernel (plain FMAs, unchanged design)
+// fp32 route: split_kernel + score_f32_kernel + pv_f32_kernel (3xTF32, wgmma)
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 256;  // 16 x 16: tx walks keys / columns, ty rows
-constexpr int kRows = 64;      // query rows per block
-constexpr int kKeys = 64;      // keys per tile (== kRows: shared staging code)
-constexpr int kF32Depth = 32;  // depth chunk of q.k staged in shared memory
-constexpr int kF32Cols = 256;   // output columns of D per block (output pass)
-constexpr int kPad = kRows + 1;  // row stride of transposed tiles: no bank conflicts
-constexpr int kColsPerThread = kF32Cols / 16;
-constexpr int kStage = kF32Depth * kPad;
-static_assert(kRows == kKeys, "score_tile stages q and k rows with one index");
-static_assert((kRows * kF32Depth) % kThreads == 0, "staging loop");
-static_assert((kKeys * kF32Cols) % kThreads == 0, "staging loop");
+constexpr int kF32Rows = 128;    // query rows per score and p v block: two warpgroups of 64
+constexpr int kF32Depth = 32;    // one ring stage: 32 fp32 (128 bytes) of D (score) or of keys (p v)
+constexpr int kF32Warps = 8;     // consumer warps, both kernels
+constexpr int kF32Threads = kF32Warps * 32 + 32;  // score: + one producer warp
+// p v: a whole producer warpgroup (one warp of it works), so that its
+// registers can go to the consumers' two sets of accumulators (setmaxnreg)
+constexpr int kF32PvThreads = kF32Warps * 32 + 128;
+constexpr int kF32Stages = 4;
+constexpr int kSplitTile = 32;   // split_kernel: one [32 keys][32 columns] tile a block
+constexpr uint32_t kF32Box = 64 * 128;       // bytes of one [64 rows][32 fp32] swizzled tile
+constexpr uint32_t kF32VTile = kCols * 128;  // one [160 columns][32 keys] tile of v^T
+// Q [128][32] (raw fp32), K hi and K lo [128][32]
+constexpr uint32_t kF32ScoreStage = 3 * 2 * kF32Box;
+// P [128][32] (raw fp32), v^T hi and v^T lo [160][32]
+constexpr uint32_t kF32PvStage = 2 * kF32Box + 2 * kF32VTile;
+constexpr size_t kF32ScoreSmem = 1024 + kF32Stages * kF32ScoreStage + 16 * kF32Stages;
+constexpr size_t kF32PvSmem = 1024 + kF32Stages * kF32PvStage + 16 * kF32Stages;
+constexpr int kF32Steps = kF32Depth / 8;  // k8 steps of wgmma a stage
+static_assert(kF32PvSmem <= 232448, "p v ring fits in a block's shared memory");
+static_assert(2 * (kTile / kF32Depth) * kF32Box <= kF32Stages * kF32ScoreStage,
+              "P staging fits in the score ring");
+static_assert(2 * (kCols / kF32Depth) * kF32Box <= kF32Stages * kF32PvStage,
+              "output staging fits in the p v ring");
+static_assert(kF32VTile % 1024 == 0 && kF32PvStage % 1024 == 0,
+              "p v tiles keep the 128-byte swizzle's alignment");
+static_assert(kCols % kF32Depth == 0 && kTile % kF32Depth == 0, "fp32 tiling");
 
-// s[i][j] = q[q0 + ty + 16 i] . k[k0 + tx + 16 j] over the whole depth D
-// (unscaled, zero for rows or keys out of range). q, k point at batch b.
-__device__ __forceinline__ void score_tile(const float* __restrict__ q, const float* __restrict__ k,
-                                           int Nq, int Nk, int D, int q0, int k0,
-                                           float* __restrict__ qs, float* __restrict__ ks,
-                                           float s[4][4]) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+// tf32 of x, rounded to nearest (ties away from zero) on its 13 low mantissa
+// bits. wgmma reads the top 19 bits of a tf32 operand and drops the rest, so
+// the splits below round here rather than let it truncate.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo (+ |x| 2^-22 at most): two tf32 values; x - hi is exact in fp32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x), "f"(y) : "memory");
+}
+
+// d (+)= a b^T for a 64x8 tf32 A tile in registers (the m16n8k8 A fragment
+// of each warp's 16 rows) and a 128x8 tf32 B tile, K-major in shared memory
+// (128-byte swizzle). tf32 takes no transpose flag: B is K-major only.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// The same with a 160x8 B tile.
+__device__ __forceinline__ void wgmma_m64n160k8_tf32(float (&d)[80], const uint32_t (&a)[4],
+                                                     uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N], const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  if constexpr (N == 64)
+    wgmma_m64n128k8_tf32(d, a, b, accumulate);
+  else
+    wgmma_m64n160k8_tf32(d, a, b, accumulate);
+}
+
+// One ring stage's products, from zero into d: for each k8 step, the A
+// fragments of this warp's 16 rows of a [64 rows][32 fp32] swizzled tile are
+// split in registers and lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b) issued
+// against the stage's B splits (K-major, 128-byte swizzle). ldmatrix moves
+// each fp32 as two b16 halves, so its x4 form hands out the tf32 m16n8k8
+// fragment: r[0] (g, k), r[1] (g + 8, k), r[2] (g, k + 4), r[3] (g + 8, k + 4).
+// Two sets of fragments alternate, so step j + 1 is split while step j's
+// products run. Returns with every product done.
+template <int N>
+__device__ __forceinline__ void stage_products(float (&d)[N], uint32_t a_tile, uint32_t b_hi,
+                                               uint32_t b_lo, int lrow, int lchunk) {
+  uint32_t hi[2][4], lo[2][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < kF32Steps; ++j) {
+    if (j >= 2) wgmma_wait<1>();  // step j - 2 is done: its fragments are free
+    uint32_t r[4];
+    ldmatrix_x4(r, a_tile + swizzled(lrow, 2 * j + lchunk));
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  for (int d0 = 0; d0 < D; d0 += kF32Depth) {
-#pragma unroll
-    for (int it = 0; it < kRows * kF32Depth / kThreads; ++it) {
-      const int e = it * kThreads + tid;
-      const int r = e / kF32Depth, c = e % kF32Depth, d = d0 + c;
-      const int qr = q0 + r, kr = k0 + r;
-      qs[c * kPad + r] = (qr < Nq && d < D) ? q[(size_t)qr * D + d] : 0.f;
-      ks[c * kPad + r] = (kr < Nk && d < D) ? k[(size_t)kr * D + d] : 0.f;
+    for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(r[e]), hi[j & 1][e], lo[j & 1][e]);
+    wgmma_fence();
+    wgmma_tf32(d, lo[j & 1], wgmma_desc(b_hi + 32 * j, 16, 1024), j > 0);
+    wgmma_tf32(d, hi[j & 1], wgmma_desc(b_lo + 32 * j, 16, 1024), 1);
+    wgmma_tf32(d, hi[j & 1], wgmma_desc(b_hi + 32 * j, 16, 1024), 1);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_acc(d);
+}
+
+// k -> its tf32 hi and lo parts, [B, Nk, D] each; v -> those of v^T,
+// [B, D, nk_pad] each, zero for keys past Nk. One block per [32 keys][32
+// columns] tile; the transpose goes through shared memory.
+__global__ void __launch_bounds__(256)
+split_kernel(const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ k_hi,
+             float* __restrict__ k_lo, float* __restrict__ vt_hi, float* __restrict__ vt_lo,
+             int Nk, int D, int nk_pad) {
+  __shared__ float tile[kSplitTile][kSplitTile + 1];
+  const int key0 = blockIdx.x * kSplitTile, d0 = blockIdx.y * kSplitTile, b = blockIdx.z;
+  const int tx = threadIdx.x % kSplitTile, ty = threadIdx.x / kSplitTile;
+  constexpr int kRowStep = 256 / kSplitTile;
+  uint32_t hi, lo;
+  for (int r = ty; r < kSplitTile; r += kRowStep) {
+    const int key = key0 + r, d = d0 + tx;
+    float x = 0.f;
+    if (key < Nk && d < D) {
+      const size_t at = ((size_t)b * Nk + key) * D + d;
+      split_tf32(k[at], hi, lo);
+      k_hi[at] = __uint_as_float(hi);
+      k_lo[at] = __uint_as_float(lo);
+      x = v[at];
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < kF32Depth; ++c) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[c * kPad + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ks[c * kPad + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-    __syncthreads();
+    tile[r][tx] = x;
+  }
+  __syncthreads();
+  for (int r = ty; r < kSplitTile; r += kRowStep) {
+    const int d = d0 + r;
+    if (d >= D) continue;
+    const size_t at = ((size_t)b * D + d) * nk_pad + key0 + tx;
+    split_tf32(tile[tx][r], hi, lo);
+    vt_hi[at] = __uint_as_float(hi);
+    vt_lo[at] = __uint_as_float(lo);
   }
 }
 
-// Scales the score tile and adds the key bias; keys past Nk become -inf.
-__device__ __forceinline__ void bias_tile(const float* __restrict__ bias, int Nk, int k0,
-                                          float scale, float s[4][4]) {
-  const int tx = threadIdx.x & 15;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int key = k0 + tx + 16 * j;
-    const float bj = key < Nk ? (bias ? bias[key] : 0.f) : -INFINITY;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][j] = fmaf(s[i][j], scale, bj);
-  }
-}
-
-// Reductions over the 16 threads (tx) that share a row: lanes 0-15 and
-// 16-31 of a warp are two rows, and xor offsets below 16 stay inside each.
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__global__ void __launch_bounds__(kThreads)
-stats_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ bias,
-             float* __restrict__ row_max, float* __restrict__ row_sum,
-             int Nq, int Nk, int D, int split_keys, float scale) {
-  __shared__ float qs[kStage];
-  __shared__ float ks[kStage];
-  const int b = blockIdx.z, split = blockIdx.y, q0 = blockIdx.x * kRows;
-  const int B = gridDim.z;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  q += (size_t)b * Nq * D;
-  k += (size_t)b * Nk * D;
-  if (bias) bias += (size_t)b * Nk;
-  const int k_end = min(Nk, (split + 1) * split_keys);
-
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) { m[i] = -1e30f; l[i] = 0.f; }
-  for (int k0 = split * split_keys; k0 < k_end; k0 += kKeys) {
-    float s[4][4];
-    score_tile(q, k, Nq, Nk, D, q0, k0, qs, ks, s);
-    bias_tile(bias, Nk, k0, scale, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float t = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-      const float m_new = fmaxf(m[i], row_max16(t));
-      float e = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) e += expf(s[i][j] - m_new);
-      l[i] = l[i] * expf(m[i] - m_new) + row_sum16(e);
-      m[i] = m_new;
+// One block per (128-key tile, 128-query tile, b). Q arrives raw and is
+// split in registers; K's splits come from split_kernel. Each 32-deep stage
+// is summed on the tensor cores and added to the fp32 total in registers.
+// Rows and keys past the tensors' ends read as zeros (TMA); rows past Nq
+// are computed and not stored, keys past Nk get -inf.
+__global__ void __launch_bounds__(kF32Threads, 1)
+score_f32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_khi,
+                 const __grid_constant__ CUtensorMap tm_klo, const __grid_constant__ CUtensorMap tm_p,
+                 const float* __restrict__ bias, float* __restrict__ part_m,
+                 float* __restrict__ part_l, int Nk, int nq_pad, int depth_stages,
+                 float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = ring + kF32Stages * kF32ScoreStage;  // one 8-byte mbarrier a stage
+  const uint32_t empty = full + 8 * kF32Stages;
+  const int kt = blockIdx.x, q0 = blockIdx.y * kF32Rows, b = blockIdx.z, k0 = kt * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kF32Stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kF32Warps);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      if (row < Nq) {
-        row_max[((size_t)split * B + b) * Nq + row] = m[i];
-        row_sum[((size_t)split * B + b) * Nq + row] = l[i];
+  __syncthreads();
+
+  if (warp == kF32Warps) {  // producer
+    if (lane == 0) {
+      for (int i = 0; i < depth_stages; ++i) {
+        const int s = i % kF32Stages;
+        if (i >= kF32Stages) mbar_wait(empty + 8 * s, (i / kF32Stages - 1) & 1);
+        const uint32_t dst = ring + s * kF32ScoreStage;
+        mbar_expect_tx(full + 8 * s, kF32ScoreStage);
+        tma_load(dst, &tm_q, full + 8 * s, i * kF32Depth, q0, b);
+        tma_load(dst + 2 * kF32Box, &tm_khi, full + 8 * s, i * kF32Depth, k0, b);
+        tma_load(dst + 4 * kF32Box, &tm_klo, full + 8 * s, i * kF32Depth, k0, b);
       }
     }
+    return;
+  }
+
+  const int wg = warp >> 2, ww = warp & 3, g = lane >> 2, t = lane & 3;
+  const int lrow = 16 * ww + (lane & 7) + 8 * ((lane >> 3) & 1), lchunk = lane >> 4;
+  // acc: the fp32 sum over depth stages, by rounded adds; part: one stage's
+  // products, summed by the tensor cores, which truncate (see the header)
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < depth_stages; ++i) {
+    const int s = i % kF32Stages;
+    mbar_wait(full + 8 * s, (i / kF32Stages) & 1);
+    const uint32_t at = ring + s * kF32ScoreStage;
+    stage_products(part, at + wg * kF32Box, at + 2 * kF32Box, at + 4 * kF32Box, lrow, lchunk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+#pragma unroll
+    for (int r = 0; r < 64; ++r) acc[r] += part[r];
+  }
+
+  // acc[4 n + e]: row 16 ww + g (+8 for e >= 2), key 8 n + 2 t + (e & 1)
+  const float* bb = bias ? bias + (size_t)b * Nk : nullptr;
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = k0 + 8 * n + 2 * t + e;
+      const float bk = key < Nk ? (bb ? __ldg(bb + key) * kLog2e : 0.f) : -INFINITY;
+      acc[4 * n + e] = fmaf(acc[4 * n + e], scale_log2, bk);
+      acc[4 * n + 2 + e] = fmaf(acc[4 * n + 2 + e], scale_log2, bk);
+      m0 = fmaxf(m0, acc[4 * n + e]);
+      m1 = fmaxf(m1, acc[4 * n + 2 + e]);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      acc[4 * n + e] = exp2f(acc[4 * n + e] - m0);
+      acc[4 * n + 2 + e] = exp2f(acc[4 * n + 2 + e] - m1);
+      l0 += acc[4 * n + e];
+      l1 += acc[4 * n + 2 + e];
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const int row = 16 * ww + g;  // within the warpgroup's 64 rows
+  if (t == 0) {
+    const size_t at = ((size_t)b * gridDim.x + kt) * nq_pad + q0 + 64 * wg + row;
+    part_m[at] = m0;
+    part_l[at] = l0;
+    part_m[at + 8] = m1;
+    part_l[at + 8] = l1;
+  }
+
+  // P tile out in fp32: all warpgroups are done reading the ring, so each
+  // stages its 64 rows as four swizzled [64][32] tiles there and stores
+  // them by TMA. Key 8 n + 2 t sits in tile n / 4, chunk 2 (n % 4) + t / 2.
+  named_barrier(1, kF32Warps * 32);
+  const uint32_t stage = ring + wg * (kTile / kF32Depth) * kF32Box;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    const uint32_t at = stage + (n >> 2) * kF32Box + swizzled(row, 2 * (n & 3) + (t >> 1)) +
+                        8 * (t & 1);
+    st_shared_v2(at, acc[4 * n], acc[4 * n + 1]);
+    st_shared_v2(at + 8 * 128, acc[4 * n + 2], acc[4 * n + 3]);
+  }
+  fence_async_smem();
+  named_barrier(2 + wg, 128);
+  if ((threadIdx.x & 127) == 0) {
+#pragma unroll
+    for (int c = 0; c < kTile / kF32Depth; ++c)
+      tma_store(&tm_p, stage + c * kF32Box, k0 + kF32Depth * c, q0 + 64 * wg, b);
+    tma_store_drain();
   }
 }
 
-// The thread's rows' softmax max and 1 / sum, merged over the key splits.
-__device__ __forceinline__ void merge_stats(const float* __restrict__ row_max,
-                                            const float* __restrict__ row_sum, int splits,
-                                            int Nq, int q0, float m[4], float inv_l[4]) {
-  const int b = blockIdx.z, B = gridDim.z, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    m[i] = 0.f;
-    inv_l[i] = 0.f;
-    if (row >= Nq) continue;
-    float mx = -1e30f, l = 0.f;
-    for (int sp = 0; sp < splits; ++sp) mx = fmaxf(mx, row_max[((size_t)sp * B + b) * Nq + row]);
-    for (int sp = 0; sp < splits; ++sp) {
-      const size_t at = ((size_t)sp * B + b) * Nq + row;
-      l += row_sum[at] * expf(row_max[at] - mx);
+// One block per (160 columns of D, 128-query tile, b): merges the row's
+// partials, streams 32-key stages of P and of v^T's splits by TMA, runs
+// each stage's 3xTF32 products from raw p, and adds them to the fp32 total
+// scaled by 2^(m_t - m) / l of the stage's key tile.
+__global__ void __launch_bounds__(kF32PvThreads, 1)
+pv_f32_kernel(const __grid_constant__ CUtensorMap tm_p, const __grid_constant__ CUtensorMap tm_vhi,
+              const __grid_constant__ CUtensorMap tm_vlo, const __grid_constant__ CUtensorMap tm_o,
+              const float* __restrict__ part_m, const float* __restrict__ part_l, int k_tiles,
+              int nq_pad) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = ring + kF32Stages * kF32PvStage;
+  const uint32_t empty = full + 8 * kF32Stages;
+  const int c0 = blockIdx.x * kCols, q0 = blockIdx.y * kF32Rows, b = blockIdx.z;
+  constexpr int kStagesPerTile = kTile / kF32Depth;
+  const int key_stages = k_tiles * kStagesPerTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kF32Stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kF32Warps);
     }
-    m[i] = mx;
-    inv_l[i] = 1.f / l;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
+  __syncthreads();
 
-constexpr size_t kOutputSmemBytes = sizeof(float) * (2 * kStage + kKeys * kPad + kKeys * kF32Cols);
-
-// One block per (256-column slice of D, 64-query tile, b): recomputes each
-// score tile, forms p = exp(s - m) / l and accumulates p v with FMAs.
-__global__ void __launch_bounds__(kThreads)
-output_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ bias,
-              const float* __restrict__ row_max, const float* __restrict__ row_sum,
-              float* __restrict__ out, int Nq, int Nk, int D, int splits, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // [kF32Depth][kPad]  q chunk, transposed
-  float* ks = qs + kStage;          // [kF32Depth][kPad]  k chunk, transposed
-  float* ps = ks + kStage;          // [kKeys][kPad]      final weights, transposed
-  float* vs = ps + kKeys * kPad;    // [kKeys][kF32Cols]     V tile, one column slice
-  const int b = blockIdx.z, q0 = blockIdx.y * kRows, c0 = blockIdx.x * kF32Cols;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  q += (size_t)b * Nq * D;
-  k += (size_t)b * Nk * D;
-  v += (size_t)b * Nk * D;
-  out += (size_t)b * Nq * D;
-  if (bias) bias += (size_t)b * Nk;
-
-  float m[4], inv_l[4];
-  merge_stats(row_max, row_sum, splits, Nq, q0, m, inv_l);
-  float acc[4][kColsPerThread];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < Nk; k0 += kKeys) {
-    float s[4][4];
-    score_tile(q, k, Nq, Nk, D, q0, k0, qs, ks, s);  // ends with a barrier
-    bias_tile(bias, Nk, k0, scale, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ps[(tx + 16 * j) * kPad + ty + 16 * i] = expf(s[i][j] - m[i]) * inv_l[i];
-#pragma unroll 4
-    for (int it = 0; it < kKeys * kF32Cols / kThreads; ++it) {
-      const int e = it * kThreads + tid;
-      const int r = e / kF32Cols, c = e % kF32Cols;
-      const int key = k0 + r, col = c0 + c;
-      vs[r * kF32Cols + c] = (key < Nk && col < D) ? v[(size_t)key * D + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kKeys; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[kk * kPad + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) {
-        const float x = vs[kk * kF32Cols + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], x, acc[i][j]);
+  if (warp >= kF32Warps) {  // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == kF32Warps && lane == 0) {
+      for (int i = 0; i < key_stages; ++i) {
+        const int s = i % kF32Stages;
+        if (i >= kF32Stages) mbar_wait(empty + 8 * s, (i / kF32Stages - 1) & 1);
+        const uint32_t dst = ring + s * kF32PvStage;
+        mbar_expect_tx(full + 8 * s, kF32PvStage);
+        tma_load(dst, &tm_p, full + 8 * s, i * kF32Depth, q0, b);
+        tma_load(dst + kF32Box, &tm_p, full + 8 * s, i * kF32Depth, q0 + 64, b);
+        tma_load(dst + 2 * kF32Box, &tm_vhi, full + 8 * s, i * kF32Depth, c0, b);
+        tma_load(dst + 2 * kF32Box + kF32VTile, &tm_vlo, full + 8 * s, i * kF32Depth, c0, b);
       }
     }
-    __syncthreads();
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp >> 2, ww = warp & 3, g = lane >> 2, t = lane & 3;
+  const int row = 16 * ww + g;  // and row + 8, within the warpgroup's 64 rows
+  const size_t r0 = (size_t)b * k_tiles * nq_pad + q0 + 64 * wg + row;
+  // The row's softmax max and sum over all key tiles; lanes t = 0..3 share
+  // the two rows and split the tiles between them.
+  float mx[2] = {-3.0e38f, -3.0e38f}, sum[2] = {0.f, 0.f};
+  for (int tile = t; tile < k_tiles; tile += 4) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t at = r0 + (size_t)tile * nq_pad + 8 * h;
+      const float mt = part_m[at], mn = fmaxf(mx[h], mt);
+      sum[h] = sum[h] * exp2f(mx[h] - mn) + part_l[at] * exp2f(mt - mn);
+      mx[h] = mn;
+    }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Nq) continue;
+  for (int off = 1; off < 4; off <<= 1) {
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int col = c0 + tx + 16 * j;
-      if (col < D) out[(size_t)row * D + col] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const float mo = __shfl_xor_sync(0xffffffffu, mx[h], off);
+      const float so = __shfl_xor_sync(0xffffffffu, sum[h], off);
+      const float mn = fmaxf(mx[h], mo);
+      sum[h] = sum[h] * exp2f(mx[h] - mn) + so * exp2f(mo - mn);
+      mx[h] = mn;
     }
+  }
+  const float inv_sum[2] = {1.f / sum[0], 1.f / sum[1]};
+
+  // acc: the fp32 sum over key stages, each stage's products (part, summed
+  // by the tensor cores from raw p) scaled by 2^(m_t - m) / l of its key tile
+  float acc[kCols / 2], part[kCols / 2];
+#pragma unroll
+  for (int i = 0; i < kCols / 2; ++i) acc[i] = 0.f;
+  const int lrow = 16 * ww + (lane & 7) + 8 * ((lane >> 3) & 1), lchunk = lane >> 4;
+  for (int i = 0; i < key_stages; ++i) {
+    const int s = i % kF32Stages;
+    const size_t tile_at = r0 + (size_t)(i / kStagesPerTile) * nq_pad;
+    const float f0 = exp2f(part_m[tile_at] - mx[0]) * inv_sum[0];
+    const float f1 = exp2f(part_m[tile_at + 8] - mx[1]) * inv_sum[1];
+    mbar_wait(full + 8 * s, (i / kF32Stages) & 1);
+    const uint32_t at = ring + s * kF32PvStage;
+    stage_products(part, at + wg * kF32Box, at + 2 * kF32Box, at + 2 * kF32Box + kF32VTile,
+                   lrow, lchunk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+#pragma unroll
+    for (int n = 0; n < kCols / 8; ++n) {
+      acc[4 * n] = fmaf(part[4 * n], f0, acc[4 * n]);
+      acc[4 * n + 1] = fmaf(part[4 * n + 1], f0, acc[4 * n + 1]);
+      acc[4 * n + 2] = fmaf(part[4 * n + 2], f1, acc[4 * n + 2]);
+      acc[4 * n + 3] = fmaf(part[4 * n + 3], f1, acc[4 * n + 3]);
+    }
+  }
+
+  // Output tile: acc[4 n + e] is row (+8 for e >= 2), column 8 n + 2 t + (e & 1);
+  // it goes out as five [64 rows][32 columns] fp32 tiles, 128-byte swizzle.
+  named_barrier(1, kF32Warps * 32);
+  constexpr int kOutTiles = kCols / kF32Depth;
+  const uint32_t stage = ring + wg * kOutTiles * kF32Box;
+#pragma unroll
+  for (int n = 0; n < kCols / 8; ++n) {
+    const uint32_t at = stage + (n >> 2) * kF32Box + swizzled(row, 2 * (n & 3) + (t >> 1)) +
+                        8 * (t & 1);
+    st_shared_v2(at, acc[4 * n], acc[4 * n + 1]);
+    st_shared_v2(at + 8 * 128, acc[4 * n + 2], acc[4 * n + 3]);
+  }
+  fence_async_smem();
+  named_barrier(2 + wg, 128);
+  if ((threadIdx.x & 127) == 0) {
+#pragma unroll
+    for (int c = 0; c < kOutTiles; ++c)
+      tma_store(&tm_o, stage + c * kF32Box, c0 + kF32Depth * c, q0 + 64 * wg, b);
+    tma_store_drain();
   }
 }
 
 int launch_f32(const float* q, const float* k, const float* v, const float* bias, float* out,
-               float* row_max, float* row_sum, int B, int Nq, int Nk, int D, int splits,
-               float scale, int device, cudaStream_t st) {
-  const int k_tiles = (Nk + kKeys - 1) / kKeys;
-  if (B <= 0 || Nq <= 0 || Nk <= 0 || D <= 0 || B > 65535 || splits <= 0 || splits > k_tiles ||
-      splits > 65535)
+               float* p, float* part_m, float* part_l, float* k_split, float* vt_split, int B,
+               int Nq, int Nk, int D, float scale, int device, cudaStream_t st) {
+  if (B <= 0 || Nq <= 0 || Nk <= 0 || D <= 0 || D % 4 != 0 || B > 65535 ||
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
+        reinterpret_cast<uintptr_t>(p) | reinterpret_cast<uintptr_t>(k_split) |
+        reinterpret_cast<uintptr_t>(vt_split)) % 16) != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int q_tiles = (Nq + kRows - 1) / kRows;
-  const int split_keys = (k_tiles + splits - 1) / splits * kKeys;
-  stats_kernel<<<dim3(q_tiles, splits, B), kThreads, 0, st>>>(q, k, bias, row_max, row_sum, Nq,
-                                                              Nk, D, split_keys, scale);
+  const int q_tiles = (Nq + kF32Rows - 1) / kF32Rows, k_tiles = (Nk + kTile - 1) / kTile;
+  const int nq_pad = q_tiles * kF32Rows, nk_pad = k_tiles * kTile;
+  float* k_hi = k_split;
+  float* k_lo = k_split + (size_t)B * Nk * D;
+  float* vt_hi = vt_split;
+  float* vt_lo = vt_split + (size_t)B * D * nk_pad;
+  constexpr CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  constexpr CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap tm_q, tm_khi, tm_klo, tm_p, tm_vhi, tm_vlo, tm_o;
+  int res;
+  if ((res = make_map(&tm_q, q, D, Nq, B, kF32Depth, kF32Rows, sw, f32)) ||
+      (res = make_map(&tm_khi, k_hi, D, Nk, B, kF32Depth, kTile, sw, f32)) ||
+      (res = make_map(&tm_klo, k_lo, D, Nk, B, kF32Depth, kTile, sw, f32)) ||
+      (res = make_map(&tm_p, p, nk_pad, Nq, B, kF32Depth, 64, sw, f32)) ||
+      (res = make_map(&tm_vhi, vt_hi, nk_pad, D, B, kF32Depth, kCols, sw, f32)) ||
+      (res = make_map(&tm_vlo, vt_lo, nk_pad, D, B, kF32Depth, kCols, sw, f32)) ||
+      (res = make_map(&tm_o, out, D, Nq, B, kF32Depth, 64, sw, f32)))
+    return kTensorMapError + res;
+
+  // once per device and process (a race only sets them twice)
+  static bool attributes_set[64] = {};
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  if (!attributes_set[device]) {
+    err = cudaFuncSetAttribute(score_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kF32ScoreSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(pv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)kF32PvSmem);
+    if (err != cudaSuccess) return (int)err;
+    attributes_set[device] = true;
+  }
+  split_kernel<<<dim3(nk_pad / kSplitTile, (D + kSplitTile - 1) / kSplitTile, B), 256, 0, st>>>(
+      k, v, k_hi, k_lo, vt_hi, vt_lo, Nk, D, nk_pad);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(output_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kOutputSmemBytes);
+  score_f32_kernel<<<dim3(k_tiles, q_tiles, B), kF32Threads, kF32ScoreSmem, st>>>(
+      tm_q, tm_khi, tm_klo, tm_p, bias, part_m, part_l, Nk, nq_pad,
+      (D + kF32Depth - 1) / kF32Depth, scale * kLog2e);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  output_kernel<<<dim3((D + kF32Cols - 1) / kF32Cols, q_tiles, B), kThreads, kOutputSmemBytes, st>>>(
-      q, k, v, bias, row_max, row_sum, out, Nq, Nk, D, splits, scale);
+  pv_f32_kernel<<<dim3((D + kCols - 1) / kCols, q_tiles, B), kF32PvThreads, kF32PvSmem, st>>>(
+      tm_p, tm_vhi, tm_vlo, tm_o, part_m, part_l, k_tiles, nq_pad);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Tiles of the bf16 route's scratch: the caller sizes P as
-// [B, Nq, ceil(Nk / keys) * keys] bf16 and the partials as
+// Tiles of a route's scratch (fp32 != 0: the fp32 route): the caller sizes
+// P as [B, Nq, ceil(Nk / keys) * keys] (bf16 or fp32) and the partials as
 // [2, B, ceil(Nk / keys), ceil(Nq / rows) * rows] fp32.
-extern "C" void token_attention_tiles(int* rows, int* keys) {
-  *rows = kScoreRows;
+extern "C" void token_attention_tiles(int fp32, int* rows, int* keys) {
+  *rows = fp32 ? kF32Rows : kScoreRows;
   *keys = kTile;
 }
 
-// Number of key splits of the fp32 stats pass: enough (b, split, query tile)
-// blocks for two per SM, at most one split per 64-key tile. The caller sizes
-// row_max and row_sum as [splits, B, Nq]. Negative: -cudaError_t.
-extern "C" int token_attention_splits(int B, int Nq, int Nk, int device) {
-  int sms = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return -(int)err;
-  const long blocks = (long)((Nq + kRows - 1) / kRows) * B;
-  const int k_tiles = (Nk + kKeys - 1) / kKeys;
-  const long want = (2L * sms + blocks - 1) / blocks;
-  const int splits = (int)(want < 1 ? 1 : (want > k_tiles ? k_tiles : want));
-  const int tiles_per_split = (k_tiles + splits - 1) / splits;
-  return (k_tiles + tiles_per_split - 1) / tiles_per_split;  // no empty split
-}
-
+// q, k, v, out, p and the splits 16-byte aligned and D % 4 == 0 (TMA); p and
+// the partials sized as token_attention_tiles says, k_split [2, B, Nk, D],
+// vt_split [2, B, D, ceil(Nk / keys) * keys], all fp32.
 extern "C" int token_attention_f32(const void* q, const void* k, const void* v, const void* bias,
-                                   void* out, void* row_max, void* row_sum, int B, int Nq, int Nk,
-                                   int D, int splits, float scale, int device, void* stream) {
+                                   void* out, void* p, void* part_m, void* part_l, void* k_split,
+                                   void* vt_split, int B, int Nq, int Nk, int D, float scale,
+                                   int device, void* stream) {
   return launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                     static_cast<const float*>(v), static_cast<const float*>(bias),
-                    static_cast<float*>(out), static_cast<float*>(row_max),
-                    static_cast<float*>(row_sum), B, Nq, Nk, D, splits, scale, device,
-                    static_cast<cudaStream_t>(stream));
+                    static_cast<float*>(out), static_cast<float*>(p),
+                    static_cast<float*>(part_m), static_cast<float*>(part_l),
+                    static_cast<float*>(k_split), static_cast<float*>(vt_split), B, Nq, Nk, D,
+                    scale, device, static_cast<cudaStream_t>(stream));
 }
 
 // q, k, v, out and p 16-byte aligned and D % 8 == 0 (TMA); p and the
-// partials sized as token_attention_tile says.
+// partials sized as token_attention_tiles says.
 extern "C" int token_attention_bf16(const void* q, const void* k, const void* v, const void* bias,
                                     void* out, void* p, void* part_m, void* part_l, int B, int Nq,
                                     int Nk, int D, float scale, int device, void* stream) {

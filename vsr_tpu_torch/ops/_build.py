@@ -79,13 +79,11 @@ def get_lib() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.token_attention_f32.argtypes = [ptr] * 7 + [i32] * 5 + [ctypes.c_float, i32, ptr]
+            lib.token_attention_f32.argtypes = [ptr] * 10 + [i32] * 4 + [ctypes.c_float, i32, ptr]
             lib.token_attention_bf16.argtypes = [ptr] * 8 + [i32] * 4 + [ctypes.c_float, i32, ptr]
-            for fn in (lib.token_attention_f32, lib.token_attention_bf16,
-                       lib.token_attention_splits):
+            for fn in (lib.token_attention_f32, lib.token_attention_bf16):
                 fn.restype = i32
-            lib.token_attention_splits.argtypes = [i32, i32, i32, i32]
-            lib.token_attention_tiles.argtypes = [ctypes.POINTER(i32)] * 2
+            lib.token_attention_tiles.argtypes = [i32] + [ctypes.POINTER(i32)] * 2
             lib.token_attention_tiles.restype = None
             _lib = lib
     return _lib

@@ -3,11 +3,13 @@ kernel (``csrc/token_attention.cu``) and its plain PyTorch version.
 
 Counterpart of ``vsr_tpu/ops/pallas_token_attention.py``. The TPU kernel's
 block-size snapping, (8, 128) padding and interpret mode have no place here:
-the CUDA kernels mask their ragged query and key edges themselves. bf16
-inputs take the TMA + wgmma route (a score kernel that writes p in bf16, then
-a p v kernel); its tensor maps need D % 8 == 0 and 16-byte aligned bases, so
-other inputs are first copied into an aligned buffer zero-padded in D (the
-scale stays 1/sqrt of the true D). fp32 inputs take the FMA route.
+the CUDA kernels mask their ragged query and key edges themselves. Both
+routes are TMA + wgmma: a score kernel that writes p, then a p v kernel;
+bf16 inputs keep p in bf16, fp32 inputs keep it in fp32 and run every
+product as three tf32 products of split operands (3xTF32, after a pass that
+splits k and v^T). The tensor maps need D % 8 == 0 (bf16) or D % 4 == 0
+(fp32) and 16-byte aligned bases, so other inputs are first copied into an
+aligned buffer zero-padded in D (the scale stays 1/sqrt of the true D).
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ def _check(q, k, v, key_bias) -> None:
 
 
 def _aligned(t: torch.Tensor, D_pad: int) -> torch.Tensor:
-    """t itself when the kernel's tensor maps can read it (D % 8 == 0 and a
+    """t itself when the kernel's tensor maps can read it (D == D_pad and a
     16-byte aligned base), else a fresh copy zero-padded to D_pad columns."""
     if t.shape[-1] == D_pad and t.data_ptr() % 16 == 0:
         return t
@@ -87,10 +89,10 @@ def _aligned(t: torch.Tensor, D_pad: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _tiles(lib) -> Tuple[int, int]:
-    """(query rows, keys) of the bf16 route's scratch tiles."""
+def _tiles(lib, fp32: bool = False) -> Tuple[int, int]:
+    """(query rows, keys) of the bf16 (or fp32) route's scratch tiles."""
     rows, keys = ctypes.c_int(), ctypes.c_int()
-    lib.token_attention_tiles(ctypes.byref(rows), ctypes.byref(keys))
+    lib.token_attention_tiles(int(fp32), ctypes.byref(rows), ctypes.byref(keys))
     return rows.value, keys.value
 
 
@@ -117,23 +119,32 @@ def _bf16_attention(lib, q, k, v, key_bias, scale: float) -> torch.Tensor:
 
 
 def _f32_attention(lib, q, k, v, key_bias, scale: float) -> torch.Tensor:
-    """The fp32 route: stats pass over key splits, then the FMA output pass."""
+    """The fp32 route: split pass, score kernel, then p v kernel, products
+    in 3xTF32 on wgmma (csrc/token_attention.cu)."""
     B, Nq, D = q.shape
     Nk = k.shape[1]
-    splits = lib.token_attention_splits(B, Nq, Nk, q.device.index)
-    if splits <= 0:
-        raise RuntimeError(f"token attention: cudaError_t {-splits} reading the device")
-    out = torch.empty_like(q)
-    # per key split: each query row's softmax max and sum over that split's keys
-    stats = torch.empty((2, splits, B, Nq), dtype=torch.float32, device=q.device)
+    D_pad = -(-D // 4) * 4
+    q, k, v = (_aligned(t, D_pad) for t in (q, k, v))
+    rows, keys = _tiles(lib, fp32=True)
+    k_tiles, nq_pad = -(-Nk // keys), -(-Nq // rows) * rows
+    nk_pad = k_tiles * keys
+    empty = functools.partial(torch.empty, dtype=torch.float32, device=q.device)
+    out = empty((B, Nq, D_pad))
+    # p = exp(s - m_t) per score tile, and each tile's row max m_t and sum l_t
+    p = empty((B, Nq, nk_pad))
+    part = empty((2, B, k_tiles, nq_pad))
+    # tf32 hi and lo parts of k, and of v^T (keys contiguous, zero past Nk)
+    k_split = empty((2, B, Nk, D_pad))
+    vt_split = empty((2, B, D_pad, nk_pad))
     stream = torch.cuda.current_stream(q.device)
     err = lib.token_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         key_bias.data_ptr() if key_bias is not None else None,
-        out.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-        B, Nq, Nk, D, splits, scale, q.device.index, stream.cuda_stream)
+        out.data_ptr(), p.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+        k_split.data_ptr(), vt_split.data_ptr(),
+        B, Nq, Nk, D_pad, scale, q.device.index, stream.cuda_stream)
     _raise_on(err, q, k)
-    return out
+    return out if D_pad == D else out[..., :D].contiguous()
 
 
 def _raise_on(err: int, q, k) -> None:

@@ -79,6 +79,9 @@ class SubtitleRemover:
 
         # ymin, ymax, xmin, xmax boxes; empty -> full frame (ref main.py:338-340)
         self.sub_areas: List[Tuple[int, int, int, int]] = list(sub_areas or [])
+        # frame ranges to process (None: all); sttn-auto passes the frames
+        # outside them through, the detector samples only inside them
+        self.ab_sections: Optional[List[range]] = None
 
         if output_path:
             self.video_out_path = os.path.abspath(output_path)
@@ -193,6 +196,7 @@ class SubtitleRemover:
                 mask,
                 frame_count=self.frame_count,
                 size=self.size,
+                ab_sections=self.ab_sections,
                 progress_cb=self._progress,
                 preview_cb=self.preview_cb,
             )
