@@ -104,7 +104,26 @@ non-zero and prints no result line):
   (n) propainter mode end to end: SubtitleRemover(mp4, device="cuda").run()
       on (e)'s mp4 with the fixed frame -> boxes map of (f) plus frame 80
       alone: scene detection, the 30- and 10-frame ranges through
-      ProPainter, frame 80 through LaMa; the output's frames and size.
+      ProPainter, frame 80 through LaMa; the output's frames and size;
+  (o) the model bootstrap: a reference-format models tree written at full
+      width from seeded numpy (reference_specs: sttn-auto/infer_model.pth
+      and sttn-det/sttn.pth as {"netG": ...}, big-lama/big-lama.pt as a raw
+      state dict cut into filesplit parts with an fs_manifest.csv,
+      propainter/raft-things.pth with 'module.' prefixes,
+      recurrent_flow_completion.pth and ProPainter.pth; no V5/, so both
+      DBNet families are missing); `python -m vsr_tpu_torch
+      --prepare-models TREE --models OUT` in a subprocess (rc 0, 6 families
+      converted, 2 missing, its wall seconds); each .npz loaded strict into
+      the port's module and held bit for bit against the .pth route
+      (load_*_weights on the reference file; for LaMa, the merged file
+      mapped by convert/torch_lama.py and from_flax); `python -m
+      vsr_tpu_torch --warmup --warmup-sizes 1080 1920 --models OUT --device
+      cuda` in a fresh subprocess (rc 0, a ready line for sttn-auto,
+      sttn-det and lama; each mode's and each build's seconds); then
+      SubtitleRemover(e's mp4, checkpoint_dir=OUT, device="cuda").run() in
+      sttn-auto mode (frames and size of the output, token-attention
+      launches as (c) counts them) and the same run with its inpainter
+      loaded from infer_model.pth: the two outputs' frames bit-identical.
 
 Phase b also runs the kernel at STTN-det's (9,5) scale (N = 2304, and 1728
 for a short range's chunk; D = 2880) with, besides the two biases above,
@@ -1341,6 +1360,425 @@ def phase_n(card, video, tmp, inpainter):
             "propainter_clips": counting.calls}
 
 
+# ---- phase o: the model bootstrap ----
+
+# the driving mask of (c) as SubtitleRemover's sub area (ymin, ymax, xmin, xmax)
+SUB_AREA = (960, 1040, 300, 1620)
+BOOTSTRAP_FAMILIES = {"converted": 6, "missing": 2}
+
+
+def _conv_spec(spec, name, cout, cin, kh, kw=None, bias=True):
+    spec[f"{name}.weight"] = (cout, cin, kh, kh if kw is None else kw)
+    if bias:
+        spec[f"{name}.bias"] = (cout,)
+
+
+def _bn_spec(spec, name, c):
+    for leaf in ("weight", "bias", "running_mean", "running_var"):
+        spec[f"{name}.{leaf}"] = (c,)
+    spec[f"{name}.num_batches_tracked"] = ()
+
+
+def _sttn_spec(channel=256, stack=8):
+    """sttn-auto/infer_model.pth's netG (and sttn-det/sttn.pth's)."""
+    spec = {}
+    for name, cout, cin in (("encoder.0", 64, 3), ("encoder.2", 64, 64),
+                            ("encoder.4", 128, 64), ("encoder.6", channel, 128)):
+        _conv_spec(spec, name, cout, cin, 3)
+    for i in range(stack):
+        for emb in ("query_embedding", "key_embedding", "value_embedding"):
+            _conv_spec(spec, f"transformer.{i}.attention.{emb}", channel, channel, 1)
+        for name in ("attention.output_linear.0", "feed_forward.conv.0", "feed_forward.conv.2"):
+            _conv_spec(spec, f"transformer.{i}.{name}", channel, channel, 3)
+    for name, cout, cin in (("decoder.0.conv", 128, channel), ("decoder.2", 64, 128),
+                            ("decoder.4.conv", 64, 64), ("decoder.6", 3, 64)):
+        _conv_spec(spec, name, cout, cin, 3)
+    return spec
+
+
+def _raft_spec():
+    """raft-things.pth (RAFT's extractor and update block), with the
+    'module.' prefix of the nn.DataParallel it was saved from."""
+    spec = {}
+    for net, has_bn in (("fnet", False), ("cnet", True)):
+        _conv_spec(spec, f"{net}.conv1", 64, 3, 7)
+        if has_bn:
+            _bn_spec(spec, f"{net}.norm1", 64)
+        in_planes = 64
+        for layer, planes in ((1, 64), (2, 96), (3, 128)):
+            for blk in (0, 1):
+                base = f"{net}.layer{layer}.{blk}"
+                _conv_spec(spec, f"{base}.conv1", planes, in_planes, 3)
+                _conv_spec(spec, f"{base}.conv2", planes, planes, 3)
+                if has_bn:
+                    _bn_spec(spec, f"{base}.norm1", planes)
+                    _bn_spec(spec, f"{base}.norm2", planes)
+                if (layer > 1 and blk == 0) or in_planes != planes:
+                    _conv_spec(spec, f"{base}.downsample.0", planes, in_planes, 1)
+                    if has_bn:
+                        _bn_spec(spec, f"{base}.norm3", planes)
+                in_planes = planes
+        _conv_spec(spec, f"{net}.conv2", 256, 128, 1)
+    u = "update_block"
+    _conv_spec(spec, f"{u}.encoder.convc1", 256, 4 * 9 ** 2, 1)
+    _conv_spec(spec, f"{u}.encoder.convc2", 192, 256, 3)
+    _conv_spec(spec, f"{u}.encoder.convf1", 128, 2, 7)
+    _conv_spec(spec, f"{u}.encoder.convf2", 64, 128, 3)
+    _conv_spec(spec, f"{u}.encoder.conv", 126, 256, 3)
+    for g in "zrq":
+        _conv_spec(spec, f"{u}.gru.conv{g}1", 128, 384, 1, 5)
+        _conv_spec(spec, f"{u}.gru.conv{g}2", 128, 384, 5, 1)
+    _conv_spec(spec, f"{u}.flow_head.conv1", 256, 128, 3)
+    _conv_spec(spec, f"{u}.flow_head.conv2", 2, 256, 3)
+    _conv_spec(spec, f"{u}.mask.0", 256, 128, 3)
+    _conv_spec(spec, f"{u}.mask.2", 576, 256, 1)
+    return {f"module.{k}": v for k, v in spec.items()}
+
+
+def _deform_align_spec(spec, base, channels, in_channels, cond_channels, groups=16):
+    for j, cin in ((0, cond_channels), (2, channels), (4, channels)):
+        _conv_spec(spec, f"{base}.conv_offset.{j}", channels, cin, 3)
+    _conv_spec(spec, f"{base}.conv_offset.6", 27 * groups, channels, 3)
+    _conv_spec(spec, base, channels, in_channels, 3)
+
+
+def _flow_completion_spec():
+    """recurrent_flow_completion.pth."""
+    spec = {}
+    for name, cout, cin, k in (
+            ("downsample.0", 32, 3, (1, 5, 5)), ("encoder1.0.conv1.0", 32, 32, (1, 3, 3)),
+            ("encoder1.0.conv2.0", 32, 32, (3, 1, 1)), ("encoder1.2.conv1.0", 64, 32, (1, 3, 3)),
+            ("encoder1.2.conv2.0", 64, 64, (3, 1, 1)), ("encoder2.0.conv1.0", 64, 64, (1, 3, 3)),
+            ("encoder2.0.conv2.0", 64, 64, (3, 1, 1)), ("encoder2.2.conv1.0", 128, 64, (1, 3, 3)),
+            ("encoder2.2.conv2.0", 128, 128, (3, 1, 1)), ("mid_dilation.0", 128, 128, (1, 3, 3)),
+            ("mid_dilation.2", 128, 128, (1, 3, 3)), ("mid_dilation.4", 128, 128, (1, 3, 3))):
+        spec[f"{name}.weight"] = (cout, cin, *k)
+        spec[f"{name}.bias"] = (cout,)
+    for d, n_in in (("backward_", 2), ("forward_", 3)):
+        _deform_align_spec(spec, f"feat_prop_module.deform_align.{d}", 128, 256, 3 * 128)
+        _conv_spec(spec, f"feat_prop_module.backbone.{d}.0", 128, n_in * 128, 3)
+        _conv_spec(spec, f"feat_prop_module.backbone.{d}.2", 128, 128, 3)
+    _conv_spec(spec, "feat_prop_module.fusion", 128, 256, 1)
+    for name, cout, cin, k in (
+            ("decoder2.0", 128, 128, 3), ("decoder2.2.conv", 64, 128, 3),
+            ("decoder1.0", 64, 64, 3), ("decoder1.2.conv", 32, 64, 3),
+            ("upsample.0", 32, 32, 3), ("upsample.2.conv", 2, 32, 3),
+            ("edgeDetector.projection.0", 16, 2, 3), ("edgeDetector.mid_layer_1.0", 16, 16, 3),
+            ("edgeDetector.mid_layer_2.0", 16, 16, 3), ("edgeDetector.out_layer", 1, 16, 1)):
+        _conv_spec(spec, name, cout, cin, k)
+    return spec
+
+
+def _propainter_spec(channel=128, hidden=512, depths=8):
+    """ProPainter.pth (the generator)."""
+    spec = {}
+    widths = [64, 64, 128, 256, 384, 512, 384, 256, channel]
+    ins = [5, 64, 64, 128, 256, 640, 768, 640, 512]
+    groups = [1, 1, 1, 1, 1, 2, 4, 8, 1]
+    for i, (cin, cout, g) in enumerate(zip(ins, widths, groups)):
+        _conv_spec(spec, f"encoder.layers.{2 * i}", cout, cin // g, 3)
+    spec["ss.embedding.weight"], spec["ss.embedding.bias"] = (hidden, 49 * channel), (hidden,)
+    spec["sc.embedding.weight"], spec["sc.embedding.bias"] = (49 * channel, hidden), (49 * channel,)
+    for name, cout, cin in (("sc.bias_conv", channel, channel), ("decoder.0.conv", 128, channel),
+                            ("decoder.2", 64, 128), ("decoder.4.conv", 64, 64),
+                            ("decoder.6", 3, 64)):
+        _conv_spec(spec, name, cout, cin, 3)
+    for d in ("backward_1", "forward_1"):
+        _deform_align_spec(spec, f"feat_prop_module.deform_align.{d}", channel, channel,
+                           2 * channel + 2 + 1 + 2)
+        _conv_spec(spec, f"feat_prop_module.backbone.{d}.0", channel, 2 * channel + 2, 3)
+        _conv_spec(spec, f"feat_prop_module.backbone.{d}.2", channel, channel, 3)
+    _conv_spec(spec, "feat_prop_module.fuse.0", channel, 2 * channel + 2, 3)
+    _conv_spec(spec, "feat_prop_module.fuse.2", channel, channel, 3)
+    for i in range(depths):
+        b = f"transformers.transformer.{i}"
+        for lin in ("query", "key", "value", "proj"):
+            spec[f"{b}.attention.{lin}.weight"] = (hidden, hidden)
+            spec[f"{b}.attention.{lin}.bias"] = (hidden,)
+        _conv_spec(spec, f"{b}.attention.pool_layer", hidden, 1, 4)
+        for norm in ("norm1", "norm2"):
+            spec[f"{b}.{norm}.weight"] = spec[f"{b}.{norm}.bias"] = (hidden,)
+        spec[f"{b}.mlp.fc1.0.weight"], spec[f"{b}.mlp.fc1.0.bias"] = (1960, hidden), (1960,)
+        spec[f"{b}.mlp.fc2.1.weight"], spec[f"{b}.mlp.fc2.1.bias"] = (hidden, 1960), (hidden,)
+    return spec
+
+
+def _lama_spec(ngf=64, n_down=3, n_blocks=18, ratio=0.75):
+    """big-lama's FFCResNetGenerator state dict (``model.<index>...``)."""
+    spec = {}
+
+    def ffc_bn_act(p, cin, cout, k, gin, gout):
+        in_g, out_g = int(cin * gin), int(cout * gout)
+        in_l, out_l = cin - in_g, cout - out_g
+        for name, ci, co in (("convl2l", in_l, out_l), ("convl2g", in_l, out_g),
+                             ("convg2l", in_g, out_l)):
+            if ci and co:
+                spec[f"{p}.ffc.{name}.weight"] = (co, ci, k, k)
+        if in_g and out_g:
+            g, half = f"{p}.ffc.convg2g", out_g // 2
+            spec[f"{g}.conv1.0.weight"] = (half, in_g, 1, 1)
+            _bn_spec(spec, f"{g}.conv1.1", half)
+            spec[f"{g}.fu.conv_layer.weight"] = (2 * half, 2 * half, 1, 1)
+            _bn_spec(spec, f"{g}.fu.bn", 2 * half)
+            spec[f"{g}.conv2.weight"] = (out_g, half, 1, 1)
+        if gout != 1:
+            _bn_spec(spec, f"{p}.bn_l", out_l)
+        if gout != 0:
+            _bn_spec(spec, f"{p}.bn_g", out_g)
+
+    ffc_bn_act("model.1", 4, ngf, 7, 0.0, 0.0)
+    feats = ngf
+    for i in range(n_down):
+        out = min(feats * 2, ngf * 8)
+        ffc_bn_act(f"model.{2 + i}", feats, out, 3, 0.0, ratio if i == n_down - 1 else 0.0)
+        feats = out
+    for b in range(n_blocks):
+        for conv in ("conv1", "conv2"):
+            ffc_bn_act(f"model.{2 + n_down + b}.{conv}", feats, feats, 3, ratio, ratio)
+    up = 2 + n_down + n_blocks + 1  # after the ConcatTupleLayer
+    for i in range(n_down):
+        spec[f"model.{up + 3 * i}.weight"] = (feats, feats // 2, 3, 3)  # ConvTranspose2d
+        spec[f"model.{up + 3 * i}.bias"] = (feats // 2,)
+        _bn_spec(spec, f"model.{up + 3 * i + 1}", feats // 2)
+        feats //= 2
+    _conv_spec(spec, f"model.{up + 3 * n_down + 1}", 3, ngf, 7)
+    return spec
+
+
+def reference_specs():
+    """family -> {key: shape} of each reference checkpoint at full width, in
+    the reference's key layout (tests/test_torch_convert.py holds these
+    against the state dicts the converter tests build)."""
+    return {"sttn": _sttn_spec(), "raft": _raft_spec(),
+            "flow_completion": _flow_completion_spec(), "propainter": _propainter_spec(),
+            "lama": _lama_spec()}
+
+
+def random_state_dict(spec, seed):
+    """Seeded float32 values for a spec, as the reference's checkpoints
+    hold: LeCun-scaled kernels, norm scales near 1, small biases and means,
+    variances in [0.5, 1.5]."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, shape in spec.items():
+        leaf = key.rsplit(".", 1)[1]
+        if leaf == "num_batches_tracked":
+            sd[key] = torch.tensor(0, dtype=torch.long)
+            continue
+        if leaf == "running_var":
+            arr = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        elif len(shape) > 1:
+            arr = rng.standard_normal(shape, dtype=np.float32) * np.float32(
+                1 / np.sqrt(np.prod(shape[1:])))
+        elif leaf == "weight":
+            arr = 1 + 0.05 * rng.standard_normal(shape, dtype=np.float32)
+        else:
+            arr = 0.05 * rng.standard_normal(shape, dtype=np.float32)
+        sd[key] = torch.from_numpy(arr)
+    return sd
+
+
+def write_split(path, parts):
+    """Cut ``path`` into filesplit parts beside it (<stem>_<i><ext> and an
+    fs_manifest.csv) and remove it, as the reference ships big blobs."""
+    import csv
+
+    with open(path, "rb") as f:
+        payload = f.read()
+    directory, name = os.path.split(path)
+    stem, ext = os.path.splitext(name)
+    size = -(-len(payload) // parts)
+    rows = []
+    for i in range(parts):
+        fname = f"{stem}_{i + 1}{ext}"
+        with open(os.path.join(directory, fname), "wb") as f:
+            f.write(payload[i * size:(i + 1) * size])
+        rows.append({"filename": fname, "filesize": len(payload[i * size:(i + 1) * size]),
+                     "encoding": "", "header": ""})
+    with open(os.path.join(directory, "fs_manifest.csv"), "w", newline="") as f:
+        writer = csv.DictWriter(f, ["filename", "filesize", "encoding", "header"])
+        writer.writeheader()
+        writer.writerows(rows)
+    os.remove(path)
+
+
+def write_reference_tree(root):
+    """The reference's backend/models layout at full width; returns
+    {family: checkpoint path}."""
+    specs = reference_specs()
+    files = {
+        "sttn-auto": ("sttn-auto/infer_model.pth", lambda: {"netG": random_state_dict(
+            specs["sttn"], SEED)}),
+        "sttn-det": ("sttn-det/sttn.pth", lambda: {"netG": random_state_dict(
+            specs["sttn"], SEED + 1)}),
+        "lama": ("big-lama/big-lama.pt", lambda: random_state_dict(specs["lama"], SEED + 2)),
+        "raft": ("propainter/raft-things.pth", lambda: random_state_dict(specs["raft"], SEED + 3)),
+        "flow-completion": ("propainter/recurrent_flow_completion.pth",
+                            lambda: random_state_dict(specs["flow_completion"], SEED + 4)),
+        "propainter": ("propainter/ProPainter.pth",
+                       lambda: random_state_dict(specs["propainter"], SEED + 5)),
+    }
+    paths = {}
+    for family, (rel, make) in files.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(make(), path)
+        paths[family] = path
+    write_split(paths["lama"], 3)
+    return paths
+
+
+def run_module(args, timeout):
+    """``python -m vsr_tpu_torch ARGS`` from the checkout, in a fresh process;
+    returns (stdout, seconds); raises on a non-zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vsr_tpu_torch", *args],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=timeout)
+    dt = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[o]   {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"[o] vsr_tpu_torch {' '.join(args)}: exit {proc.returncode}\n"
+                             f"{proc.stderr[-4000:]}")
+    return proc.stdout, dt
+
+
+def same_state(a, b, what):
+    sa, sb = a.state_dict(), b.state_dict()
+    if list(sa) != list(sb) or not all(torch.equal(sa[k], sb[k]) for k in sa):
+        raise AssertionError(f"[o] {what}: the .npz route and the reference route differ")
+
+
+def check_prepared(tree, out, paths):
+    """Each .npz strict into the port's module, bit for bit against the
+    reference file's route."""
+    from vsr_tpu_torch.convert.from_flax import lama_state_dict_from_flax
+    from vsr_tpu_torch.convert.torch_lama import load_lama_checkpoint
+    from vsr_tpu_torch.inpaint import weights
+    from vsr_tpu_torch.models.lama import LamaGenerator
+    from vsr_tpu_torch.models.propainter.flow_completion import RecurrentFlowCompleteNet
+    from vsr_tpu_torch.models.propainter.generator import ProPainterGenerator
+    from vsr_tpu_torch.models.propainter.raft import RAFT
+    from vsr_tpu_torch.models.sttn import STTNGenerator
+
+    for family, npz, make, load in (
+            ("sttn-auto", "sttn_auto.npz", lambda: STTNGenerator(variant="auto"),
+             weights.load_sttn_weights),
+            ("sttn-det", "sttn_det.npz", lambda: STTNGenerator(variant="det"),
+             weights.load_sttn_weights),
+            ("raft", "raft.npz", RAFT, weights.load_raft_weights),
+            ("flow-completion", "flow_completion.npz", RecurrentFlowCompleteNet,
+             weights.load_flow_completion_weights),
+            ("propainter", "propainter.npz", ProPainterGenerator,
+             weights.load_propainter_weights)):
+        via_npz, via_pth = make(), make()
+        load(via_npz, os.path.join(out, npz))
+        load(via_pth, paths[family])
+        same_state(via_npz, via_pth, family)
+    via_npz, via_pth = LamaGenerator(), LamaGenerator()
+    weights.load_lama_weights(via_npz, os.path.join(out, "lama.npz"))
+    merged = os.path.join(tree, "big-lama", "big-lama.pt")
+    via_pth.load_state_dict(lama_state_dict_from_flax(load_lama_checkpoint(merged)), strict=True)
+    same_state(via_npz, via_pth, "lama")
+
+
+def decoded(path):
+    from vsr_tpu_torch.io.video import VideoReader
+
+    reader, frames = VideoReader(path), []
+    try:
+        while True:
+            ok, frame = reader.read()
+            if not ok:
+                return frames
+            frames.append(frame)
+    finally:
+        reader.release()
+
+
+def phase_o(card, video, tmp):
+    import gc
+
+    from vsr_tpu_torch.config import Config
+    from vsr_tpu_torch.inpaint.sttn_auto import STTNAutoInpainter
+    from vsr_tpu_torch.io.video import read_video_info
+    from vsr_tpu_torch.ops import token_attention
+    from vsr_tpu_torch.pipeline import SubtitleRemover
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the subprocess
+    tree, out = os.path.join(tmp, "models"), os.path.join(tmp, "models_npz")
+    paths, dt_tree = timed(lambda: write_reference_tree(tree))
+    size_mb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tree)
+                  for f in fs) / 1e6
+    log(f"[o] reference tree: {len(paths)} checkpoints, {size_mb:.1f} MB, written in "
+        f"{dt_tree:.2f} s")
+
+    stdout, prepare_s = run_module(["--prepare-models", tree, "--models", out], 600)
+    families = {}
+    for line in stdout.splitlines():
+        m = re.match(r"\[prepare\] ([\w-]+): (.*)", line)
+        if m:
+            status = m.group(2)
+            families[m.group(1)] = ("missing" if status.startswith("MISSING") else
+                                    "error" if status.startswith("FAILED") else
+                                    "exists" if status.startswith("up to date") else "converted")
+    counts = {s: sum(1 for v in families.values() if v == s) for s in set(families.values())}
+    log(f"[o] --prepare-models in {prepare_s:.2f} s (a fresh process, import included): "
+        f"{families}")
+    if counts != BOOTSTRAP_FAMILIES or any(families[f] != "missing" for f in
+                                           ("dbnet-server", "dbnet-mobile")):
+        raise AssertionError(f"[o] families {families}, expected {BOOTSTRAP_FAMILIES}")
+    _, dt_check = timed(lambda: check_prepared(tree, out, paths))
+    log(f"[o] 7 models: .npz route == reference route bit for bit ({dt_check:.2f} s)")
+
+    stdout, warmup_total = run_module(["--warmup", "--warmup-sizes", str(H), str(W),
+                                       "--models", out, "--device", "cuda"], 600)
+    warmup_s = {m: float(s) for m, s in re.findall(r"\[warmup\] ([\w-]+): ready in ([\d.]+)s",
+                                                   stdout)}
+    build_s = {m: float(s) for m, s in re.findall(r"\[warmup\] build (.+): ([\d.]+)s", stdout)}
+    if set(warmup_s) != {"sttn-auto", "sttn-det", "lama"} or len(build_s) != 2:
+        raise AssertionError(f"[o] warm-up reported {warmup_s}, builds {build_s}")
+    log(f"[o] --warmup in {warmup_total:.2f} s (a fresh process): modes {warmup_s}, "
+        f"builds {build_s} on {card}")
+
+    cfg = Config(compute_dtype="bfloat16")
+    outputs, run = [], {}
+    for route in ("npz", "pth"):
+        path = os.path.join(tmp, f"bootstrap_{route}.mp4")
+        remover = SubtitleRemover(video, output_path=path, sub_areas=[SUB_AREA], config=cfg,
+                                  checkpoint_dir=out, device="cuda")
+        if route == "pth":
+            remover._sttn_auto = STTNAutoInpainter(checkpoint_path=paths["sttn-auto"],
+                                                   config=cfg, device="cuda")
+        token_attention.launches = 0
+        _, dt = timed(remover.run)
+        launches = token_attention.launches
+        want = expected_auto_launches(remover.sttn_auto_inpaint, N_FRAMES)
+        info = read_video_info(path)
+        log(f"[o] SubtitleRemover.run() sttn-auto from the {route} weights: {info.frame_count} "
+            f"frames {info.width}x{info.height} in {dt:.2f} s, kernel launches {launches} "
+            f"(expected {want}) on {card}")
+        if launches != want or launches == 0:
+            raise AssertionError(f"[o] kernel launches {launches}, expected {want}")
+        if (info.frame_count, info.width, info.height) != (N_FRAMES, W, H):
+            raise AssertionError(f"[o] output {info}, expected {N_FRAMES} frames {W}x{H}")
+        outputs.append(decoded(path))
+        if route == "npz":
+            run = {"run_s": dt, "launches": launches, "frames": info.frame_count,
+                   "size": [info.width, info.height]}
+    if len(outputs[0]) != N_FRAMES or not all(
+            np.array_equal(a, b) for a, b in zip(*outputs)):
+        raise AssertionError("[o] the run from the prepared .npz differs from the run from "
+                             "infer_model.pth")
+    log("[o] the prepared run's frames equal the infer_model.pth run's, bit for bit")
+    run["bit_identical_to_pth"] = True
+    return {"tree_mb": size_mb, "prepare_s": prepare_s, "families": families,
+            "check_s": dt_check, "warmup_process_s": warmup_total, "warmup_s": warmup_s,
+            "build_s": build_s, "run_from_prepared": run}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1385,6 +1823,9 @@ def main(argv) -> int:
         done("m")
         pp_run["remover"] = phase_n(card, video, tmp, pp_bf16)
         done("n")
+        del lama, pp_bf16  # their device memory, for phase o's subprocesses
+        bootstrap = phase_o(card, video, tmp)
+        done("o")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # one sttn-auto transformer block's two kernel scales, as that path calls them
@@ -1423,6 +1864,7 @@ def main(argv) -> int:
         "detection_mobile": detection_mobile,
         "fps_1080p_bf16_propainter": pp_run.pop("fps"),
         "propainter": pp_run,
+        "bootstrap": bootstrap,
         "card": card,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -328,3 +328,146 @@ def test_i18n_catalogue_matches(locale):
 
 def test_version_matches():
     assert __version__ == jax_version
+
+
+def _fade_frames(rng, t=90, h=24, w=32):
+    """Random piecewise-constant brightness with cuts, drifts and fades."""
+    frames, level = [], 120.0
+    for _ in range(t):
+        r = rng.random()
+        if r < 0.08:
+            level = rng.uniform(0, 255)
+        elif r < 0.25:
+            level = float(np.clip(level + rng.uniform(-40, 40), 0, 255))
+        noise = rng.normal(0, 2, (h, w, 3))
+        frames.append(np.clip(level + noise, 0, 255).astype(np.uint8))
+    return frames
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_scene_detectors_bit_identical(seed, tmp_path):
+    """AdaptiveDetector and ThresholdDetector (both fade methods, bias,
+    final scene) fed the same seeded scores and frames: the same cuts and
+    the same StatsManager contents; the stats CSV written by the port loads
+    in vsr_tpu to the same rows, and the other way round."""
+    from vsr_tpu.scenes import detectors as jax_det
+    from vsr_tpu_torch.scenes import detectors as det
+
+    rng = np.random.default_rng(900 + seed)
+    frames = _fade_frames(rng)
+    scores = rng.gamma(1.5, 6.0, len(frames))
+    scores[rng.integers(0, len(frames), 6)] *= 8
+    scores[rng.integers(0, len(frames), 3)] = 0.0
+    kw = dict(adaptive_threshold=float(rng.uniform(1.5, 4)), min_scene_len=int(rng.integers(1, 12)),
+              window_width=int(rng.integers(1, 4)), min_content_val=float(rng.uniform(5, 20)))
+    fade = dict(threshold=float(rng.uniform(20, 200)), min_scene_len=int(rng.integers(1, 12)),
+                fade_bias=float(rng.uniform(-1, 1)), add_final_scene=bool(seed % 2))
+    runs = []
+    for mod in (det, jax_det):
+        stats = mod.StatsManager()
+        adaptive = mod.AdaptiveDetector(stats_manager=stats, **kw)
+        cuts = [c for i, s in enumerate(scores) for c in adaptive.process_score(i, float(s))]
+        for method in mod.FadeMethod:
+            thresh = mod.ThresholdDetector(method=method, stats_manager=stats, **fade)
+            cuts.append([c for i, f in enumerate(frames) for c in thresh.process_frame(i, f)]
+                        + thresh.post_process(len(frames) - 1))
+        assert mod.compute_frame_average(frames[3]) == jax_det.compute_frame_average(frames[3])
+        runs.append((cuts, stats._metrics, stats.keys()))
+    assert runs[0] == runs[1]
+    assert [m.name for m in det.FadeMethod] == [m.name for m in jax_det.FadeMethod]
+    mine, theirs = str(tmp_path / "mine.csv"), str(tmp_path / "theirs.csv")
+    stats.save_to_csv(theirs)
+    port_stats = det.StatsManager()
+    port_stats._metrics = runs[0][1]
+    port_stats.save_to_csv(mine)
+    with open(mine) as a, open(theirs) as b:
+        assert a.read() == b.read()
+    back, jax_back = det.StatsManager(), jax_det.StatsManager()
+    assert back.load_from_csv(theirs) == jax_back.load_from_csv(mine) == len(frames)
+    assert back._metrics == jax_back._metrics
+    assert back.metrics_exist(5, ["content_val"]) and not back.metrics_exist(5, ["x"])
+    assert back.get_metrics(5, ["content_val", "x"]) == jax_back.get_metrics(5, ["content_val", "x"])
+
+
+def test_scene_detectors_on_video_bit_identical(tmp_path):
+    """detect_scene_cuts_adaptive and detect_scene_cuts_threshold on a small
+    mp4 with hard cuts and a fade to black."""
+    import cv2
+
+    from vsr_tpu.scenes import detectors as jax_det
+    from vsr_tpu_torch import scenes
+    from vsr_tpu_torch.scenes import detectors as det
+
+    path = str(tmp_path / "scenes.mp4")
+    rng = np.random.default_rng(11)
+    colours = rng.integers(30, 256, (5, 3))
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 24, (320, 96))
+    for i in range(100):
+        frame = np.full((96, 320, 3), colours[min(i // 20, 4)], np.uint8)
+        frame[:, : 3 * i % 320] //= 2 if i % 7 else 1
+        if 45 <= i < 55:
+            frame[:] = 2  # fade to black and back
+        writer.write(frame)
+    writer.release()
+    got = det.detect_scene_cuts_adaptive(path, det.AdaptiveDetector(min_scene_len=5), batch=16)
+    assert got == jax_det.detect_scene_cuts_adaptive(
+        path, jax_det.AdaptiveDetector(min_scene_len=5), batch=16)
+    assert len(got) >= 3
+    cuts = det.detect_scene_cuts_threshold(path, det.ThresholdDetector(min_scene_len=5))
+    assert cuts == jax_det.detect_scene_cuts_threshold(path, jax_det.ThresholdDetector(min_scene_len=5))
+    assert len(cuts) == 1
+    from vsr_tpu import scenes as jax_scenes
+
+    assert scenes.__all__ == jax_scenes.__all__
+    assert all(getattr(scenes, name) is not None for name in scenes.__all__)
+
+
+@pytest.mark.parametrize("path", ["x.PNG", "x.png", "a.mkv", "a.txt", "dir.d/b.JPEG", "noext",
+                                  "c.Mp4", "d.webp", "e.ts"])
+def test_common_file_type_checks(path):
+    from vsr_tpu.utils import common as jax_common
+    from vsr_tpu_torch.utils import common
+
+    for name in ("is_image_file", "is_video_file", "is_video_or_image"):
+        assert getattr(common, name)(path) == getattr(jax_common, name)(path), name
+
+
+def test_common_image_io_and_side_by_side(tmp_path):
+    """Unicode-safe image read/write and the side-by-side merge write the
+    same bytes and frames as vsr_tpu.utils.common, as tests/test_aux.py
+    exercises it."""
+    import cv2
+
+    from vsr_tpu.utils import common as jax_common
+    from vsr_tpu_torch.utils import common
+
+    img = np.random.default_rng(5).integers(0, 256, (20, 30, 3), np.uint8)
+    paths = [str(tmp_path / "图片_тест.png"), str(tmp_path / "jax_图片.png")]
+    assert common.write_image(paths[0], img) and jax_common.write_image(paths[1], img)
+    with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+        assert a.read() == b.read()
+    np.testing.assert_array_equal(common.read_image(paths[1]), img)
+    np.testing.assert_array_equal(common.read_image(paths[0]), jax_common.read_image(paths[0]))
+    assert common.read_image(str(tmp_path / "missing.png")) is None
+
+    def mk(path, level, size):
+        w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10, size)
+        for i in range(6 if level < 100 else 8):
+            w.write(np.full((size[1], size[0], 3), (level + 3 * i) % 256, np.uint8))
+        w.release()
+
+    a, b = str(tmp_path / "a.mp4"), str(tmp_path / "b.mp4")
+    mk(a, 50, (64, 48))
+    mk(b, 200, (80, 40))  # other size: resized to the left's
+    outs = [str(tmp_path / "sbs.mp4"), str(tmp_path / "sbs_jax.mp4")]
+    assert common.merge_videos_side_by_side(a, b, outs[0]) == 6
+    assert jax_common.merge_videos_side_by_side(a, b, outs[1]) == 6
+    caps = [cv2.VideoCapture(p) for p in outs]
+    try:
+        for _ in range(6):
+            (ok0, f0), (ok1, f1) = (c.read() for c in caps)
+            assert ok0 and ok1 and f0.shape == (48, 128, 3)
+            np.testing.assert_array_equal(f0, f1)
+    finally:
+        for c in caps:
+            c.release()

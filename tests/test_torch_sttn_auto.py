@@ -128,8 +128,6 @@ def test_cli_end_to_end(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-i", "x.mp4", "--warmup"], "item 4"),
-    (["-i", "x.mp4", "--check-update"], "item 4"),
     (["--gui"], "item 11"),
 ])
 def test_cli_unported_modes_exit_with_roadmap_item(argv, item, capsys):
@@ -170,15 +168,16 @@ def test_cuda_without_gpu_raises():
 
 
 def test_port_never_imports_jax():
-    """Every module of vsr_tpu_torch, chip_smoke and kernel_faults imported
-    in a fresh process and `python -m vsr_tpu_torch --help` run there:
-    nothing of jax, flax or the JAX package vsr_tpu is loaded."""
+    """Every module of vsr_tpu_torch (``convert.__main__`` too: it does
+    nothing on import), chip_smoke and kernel_faults imported in a fresh
+    process and `python -m vsr_tpu_torch --help` run there: nothing of jax,
+    flax or the JAX package vsr_tpu is loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vsr_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(vsr_tpu_torch.__path__, 'vsr_tpu_torch.')]\n"
         "for name in names + ['chip_smoke', 'kernel_faults']:\n"
-        "    if not name.endswith('__main__'):\n"
+        "    if name != 'vsr_tpu_torch.__main__':\n"
         "        importlib.import_module(name)\n"
         "sys.argv = ['vsr_tpu_torch', '--help']\n"
         "try:\n"
@@ -187,7 +186,11 @@ def test_port_never_imports_jax():
         "    assert e.code == 0\n"
         "assert 'vsr_tpu_torch.pipeline' in sys.modules and 'chip_smoke' in sys.modules\n"
         "assert {'vsr_tpu_torch.inpaint.propainter', 'vsr_tpu_torch.models.propainter.raft',\n"
-        "        'vsr_tpu_torch.ops.deform_conv', 'vsr_tpu_torch.scenes.content'} <= set(names)\n"
+        "        'vsr_tpu_torch.ops.deform_conv', 'vsr_tpu_torch.scenes.content',\n"
+        "        'vsr_tpu_torch.convert.__main__', 'vsr_tpu_torch.convert.paddle_dbnet',\n"
+        "        'vsr_tpu_torch.prepare', 'vsr_tpu_torch.warmup', 'vsr_tpu_torch.scenes.detectors',\n"
+        "        'vsr_tpu_torch.utils.common', 'vsr_tpu_torch.utils.version_service'} <= set(names)\n"
+        "assert 'vsr_tpu_torch.convert.__main__' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'vsr_tpu'))\n"
         "print(len(names), bad)\n"
         "raise SystemExit(1 if bad else 0)\n"

@@ -1,9 +1,11 @@
 """JAX-package params -> the port's state dicts.
 
-STTN: inverts the key map of ``vsr_tpu/convert/torch_sttn.py`` (copied here:
-that module imports jax) and transposes conv kernels HWIO -> OIHW.
+STTN: inverts the key map of ``convert/torch_sttn.py`` (the port's copy of
+the JAX package's converter) and transposes conv kernels HWIO -> OIHW.
 DBNet, LaMa and ProPainter's three networks: the port's modules carry the
-flax names, so the map is structural (see _structural_state_dict).
+flax module names, so the map is structural (see _structural_state_dict).
+Reference checkpoints reach these maps through the converters beside this
+module, which write the JAX package's variable tree.
 """
 
 from __future__ import annotations
@@ -14,30 +16,12 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-_ENCODER = {f"encoder/conv{i}": f"encoder.{i * 2}" for i in range(4)}
-_DECODER = {
-    "decoder/deconv0": "decoder.0.conv",
-    "decoder/conv1": "decoder.2",
-    "decoder/deconv1": "decoder.4.conv",
-    "decoder/conv2": "decoder.6",
-}
-_ATTN = {
-    "query": "query_embedding",
-    "key": "key_embedding",
-    "value": "value_embedding",
-    "out": "output_linear.0",
-}
+from vsr_tpu_torch.convert import torch_sttn
+from vsr_tpu_torch.convert.mapping import flatten_tree as _flatten
 
-
-def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
-    flat: Dict[str, Any] = {}
-    for key, value in tree.items():
-        path = f"{prefix}{key}"
-        if isinstance(value, Mapping):
-            flat.update(_flatten(value, path + "/"))
-        else:
-            flat[path] = value
-    return flat
+_ENCODER = {v: k for k, v in torch_sttn.ENCODER.items()}
+_DECODER = {v: k for k, v in torch_sttn.DECODER.items()}
+_ATTN = {v: k for k, v in torch_sttn.ATTN.items()}
 
 
 def _map_module(flax_path: str) -> str:

@@ -1,9 +1,15 @@
 """Weight loading for the STTN, DBNet, LaMa and ProPainter models: converted
-.npz, reference .pth (STTN), or a seeded random init (this repo ships no
-trained weights)."""
+.npz, a reference checkpoint (STTN, RAFT, flow completion, ProPainter), or a
+seeded random init (this repo ships no trained weights).
+
+Both routes end in the JAX package's variable tree: a ``.npz`` holds it, and
+a reference checkpoint becomes it through the port's converters
+(``convert/torch_*.py``, copies of the JAX package's). The
+``*_state_dict_from_flax`` maps then give the state dict, loaded strict."""
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import warnings
@@ -13,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from vsr_tpu_torch.convert.__main__ import _load as load_reference
 from vsr_tpu_torch.convert.from_flax import (
     dbnet_state_dict_from_flax,
     flow_completion_state_dict_from_flax,
@@ -52,19 +59,19 @@ def init_random_(model: nn.Module, seed: int = 0) -> None:
 
 
 def _load_or_init(model: nn.Module, checkpoint_path: Optional[str], seed: int,
-                  from_npz: Callable[[Dict[str, np.ndarray]], Dict[str, torch.Tensor]],
-                  torch_checkpoints: bool) -> None:
+                  from_flax: Callable[[Dict[str, np.ndarray]], Dict[str, torch.Tensor]],
+                  from_reference: Optional[Callable[[str], Dict]]) -> None:
     if checkpoint_path and os.path.exists(checkpoint_path):
         if checkpoint_path.endswith(".npz"):
             with np.load(checkpoint_path) as data:
-                state = from_npz({k: data[k] for k in data.files})
+                state = from_flax({k: data[k] for k in data.files})
         elif checkpoint_path.endswith((".pth", ".pt", ".ckpt")):
-            if not torch_checkpoints:
+            if from_reference is None:
                 raise ValueError(
-                    f"{checkpoint_path}: raw torch checkpoints of this model need the "
-                    "JAX package's converter (--prepare-models); convert to .npz first")
-            ckpt = torch.load(checkpoint_path, map_location="cpu")
-            state = ckpt.get("netG", ckpt)
+                    f"{checkpoint_path}: a reference checkpoint of this model loads only "
+                    "through its converter: convert to .npz first with `python -m "
+                    "vsr_tpu_torch --prepare-models REF_MODELS_DIR --models DIR`")
+            state = from_flax(from_reference(checkpoint_path))
         else:
             raise ValueError(f"unknown checkpoint format: {checkpoint_path}")
         model.load_state_dict(state, strict=True)
@@ -81,12 +88,13 @@ def load_sttn_weights(model: nn.Module, checkpoint_path: Optional[str] = None,
                       seed: int = 0) -> None:
     """Fill ``model``'s parameters in place from ``checkpoint_path``.
 
-    ``.npz``: JAX-package params (read with numpy, converted with
-    sttn_state_dict_from_flax). ``.pth``/``.pt``/``.ckpt``: a reference
-    checkpoint's ``netG`` state dict. Missing or absent path: seeded random
-    init, with a warning when a path was given."""
+    ``.npz``: the JAX package's params (sttn_auto.npz / sttn_det.npz, read
+    with numpy, mapped with sttn_state_dict_from_flax).
+    ``.pth``/``.pt``/``.ckpt``: a reference checkpoint (its ``netG`` state
+    dict), converted by convert/torch_sttn.py first. Missing or absent path:
+    seeded random init, with a warning when a path was given."""
     _load_or_init(model, checkpoint_path, seed, sttn_state_dict_from_flax,
-                  torch_checkpoints=True)
+                  functools.partial(load_reference, "sttn-auto"))
 
 
 def load_dbnet_weights(model: nn.Module, checkpoint_path: Optional[str] = None,
@@ -94,12 +102,12 @@ def load_dbnet_weights(model: nn.Module, checkpoint_path: Optional[str] = None,
     """Fill a DBNet's parameters and BatchNorm statistics in place.
 
     ``.npz``: the JAX package's DBNet variables (params and batch_stats,
-    converted with dbnet_state_dict_from_flax). Missing or absent path:
-    seeded random init with flax's BatchNorm start values, with a warning
-    when a path was given. Paddle checkpoints go through the JAX package's
-    converter to .npz first (ROADMAP.md Queue 1 item 4)."""
-    _load_or_init(model, checkpoint_path, seed, dbnet_state_dict_from_flax,
-                  torch_checkpoints=False)
+    mapped with dbnet_state_dict_from_flax). Missing or absent path: seeded
+    random init with flax's BatchNorm start values, with a warning when a
+    path was given. Paddle checkpoints reach it through ``--prepare-models``
+    (convert/paddle_dbnet.py); a ``.pth``/``.pt`` path raises, as in the JAX
+    package."""
+    _load_or_init(model, checkpoint_path, seed, dbnet_state_dict_from_flax, None)
 
 
 def load_lama_weights(model: nn.Module, checkpoint_path: Optional[str] = None,
@@ -107,38 +115,40 @@ def load_lama_weights(model: nn.Module, checkpoint_path: Optional[str] = None,
     """Fill a LamaGenerator's parameters and BatchNorm statistics in place.
 
     ``.npz``: the JAX package's LamaGenerator variables (params and
-    batch_stats, converted with lama_state_dict_from_flax); a big-lama.pt
-    reaches it through the JAX package's converter (``--prepare-models``).
-    A ``.pth``/``.pt`` path raises, as in the JAX package. Missing or absent
+    batch_stats, mapped with lama_state_dict_from_flax); a big-lama.pt
+    reaches it through ``--prepare-models`` (convert/torch_lama.py). A
+    ``.pth``/``.pt`` path raises, as in the JAX package. Missing or absent
     path: seeded random init with flax's BatchNorm start values, with a
     warning when a path was given."""
-    _load_or_init(model, checkpoint_path, seed, lama_state_dict_from_flax,
-                  torch_checkpoints=False)
+    _load_or_init(model, checkpoint_path, seed, lama_state_dict_from_flax, None)
 
 
 def load_raft_weights(model: nn.Module, checkpoint_path: Optional[str] = None,
                       seed: int = 0) -> None:
     """Fill a RAFT's parameters and its context net's BatchNorm statistics
-    in place. ``.npz``: the JAX package's RAFT variables (raft.npz,
-    converted with raft_state_dict_from_flax); a reference raft-things.pth
-    reaches it through the JAX package's converter (``--prepare-models``).
-    A ``.pth`` path raises. Missing or absent path: seeded random init,
-    with a warning when a path was given."""
+    in place. ``.npz``: the JAX package's RAFT variables (raft.npz, mapped
+    with raft_state_dict_from_flax). ``.pth``: a reference raft-things.pth
+    (``module.`` prefixes and all), converted by convert/torch_raft.py
+    first. Missing or absent path: seeded random init, with a warning when
+    a path was given."""
     _load_or_init(model, checkpoint_path, seed, raft_state_dict_from_flax,
-                  torch_checkpoints=False)
+                  functools.partial(load_reference, "raft"))
 
 
 def load_flow_completion_weights(model: nn.Module, checkpoint_path: Optional[str] = None,
                                  seed: int = 0) -> None:
     """Fill a RecurrentFlowCompleteNet in place from flow_completion.npz
-    (flow_completion_state_dict_from_flax); as load_raft_weights otherwise."""
+    (flow_completion_state_dict_from_flax) or a reference
+    recurrent_flow_completion.pth (convert/torch_propainter.py); as
+    load_raft_weights otherwise."""
     _load_or_init(model, checkpoint_path, seed, flow_completion_state_dict_from_flax,
-                  torch_checkpoints=False)
+                  functools.partial(load_reference, "flow-completion"))
 
 
 def load_propainter_weights(model: nn.Module, checkpoint_path: Optional[str] = None,
                             seed: int = 0) -> None:
     """Fill a ProPainterGenerator in place from propainter.npz
-    (propainter_state_dict_from_flax); as load_raft_weights otherwise."""
+    (propainter_state_dict_from_flax) or a reference ProPainter.pth
+    (convert/torch_propainter.py); as load_raft_weights otherwise."""
     _load_or_init(model, checkpoint_path, seed, propainter_state_dict_from_flax,
-                  torch_checkpoints=False)
+                  functools.partial(load_reference, "propainter"))

@@ -37,13 +37,8 @@ from vsr_tpu_torch.masks.intervals import (
     split_range_by_scene,
 )
 from vsr_tpu_torch.masks.mask import create_mask
+from vsr_tpu_torch.utils.common import is_image_file
 from vsr_tpu_torch.utils.device import resolve_device
-
-IMAGE_EXTENSIONS = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
-
-
-def is_image_file(path: str) -> bool:
-    return os.path.splitext(str(path))[-1].lower() in IMAGE_EXTENSIONS
 
 
 class SubtitleRemover:
