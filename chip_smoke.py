@@ -123,7 +123,33 @@ non-zero and prints no result line):
       SubtitleRemover(e's mp4, checkpoint_dir=OUT, device="cuda").run() in
       sttn-auto mode (frames and size of the output, token-attention
       launches as (c) counts them) and the same run with its inpainter
-      loaded from infer_model.pth: the two outputs' frames bit-identical.
+      loaded from infer_model.pth: the two outputs' frames bit-identical;
+  (p) the GUI and the batch queue with workers on the card: GuiServer(port=0,
+      device="cuda") in this process, VSR_TPU_MODELS at (o)'s prepared
+      weights; over HTTP with the session token, three tasks: (e)'s mp4 in
+      sttn-auto with SUB_AREA, frame PICTURE_FRAME as a 1920x1080 PNG
+      (locked to LaMa; the random DBNet finds no text, so the picture is
+      written unchanged), and a copy of the mp4 stopped through /api/stop
+      once its progress passes GUI_STOP_AT %; /api/state polled until all
+      are done: completed, completed, failed with "stopped", a decodable
+      side-by-side preview JPEG, every worker's first log line naming the
+      card, the stopped worker's pid gone from nvidia-smi's compute
+      processes and the card's memory used back within
+      GUI_MEMORY_SLACK_MIB of what it was before the queue (nvidia-smi may
+      list no pid of a container's processes); per task the
+      wall time from processing to done, the worker's own processing time
+      (its "processing time:" line) and their difference, the start-up;
+      then the same video through SubtitleRemover.run() in this process
+      (uint8 max and mean difference against the worker's output, max <=
+      MAX_U8_DIFF) and TaskRunner(device="cuda") on the PNG;
+  (q) the inpainters' mesh: a 50-frame sttn-auto chunk through
+      STTNWindowEngine (bf16, full width, window batch 1), a LaMa band batch
+      of 16 and a 20-frame ProPainter band clip, each alone and with mesh
+      [cuda:0, cuda:0] (two replicas on one card), and over every card when
+      there are two or more: split against single device max <= 1 uint8 and
+      <= 1% of values differing (LaMa 5%), the STTN run's kernel launches
+      equal to the single device's (16 a window batch, padded windows
+      included when the cards do not divide the windows), times of both.
 
 Phase b also runs the kernel at STTN-det's (9,5) scale (N = 2304, and 1728
 for a short range's chunk; D = 2880) with, besides the two biases above,
@@ -961,11 +987,14 @@ def phase_h(card, frames, mask, profile):
 
     (ymin, ymax, r0, out_h), d_img, d_mask = band_batch(inpainter, frames, mask)
     B = lama.BAND_BATCH
-    batch_ms = cuda_ms(lambda: inpainter._band_forward(d_img, d_mask, r0, out_h, W), 5)
+
+    def band_forward():
+        return inpainter._band_forward(inpainter.model, d_img, d_mask, r0, out_h, W)
+
+    batch_ms = cuda_ms(band_forward, 5)
     full_ms = cuda_ms(lambda: inpainter._forward(d_img, d_mask), 5)
     with torch.inference_mode():
-        flops, _ = count_flops(inpainter.model,
-                               lambda: inpainter._band_forward(d_img, d_mask, r0, out_h, W))
+        flops, _ = count_flops(inpainter.model, band_forward)
         full_flops, _ = count_flops(inpainter.model, lambda: inpainter._forward(d_img, d_mask))
     tflops = flops / batch_ms / 1e9
     device_s = len(bands) * batches * batch_ms / 1e3
@@ -1016,7 +1045,7 @@ def phase_i(card, frames, mask, bf16):
         raise AssertionError(f"[i] LaMa card vs CPU: max |err| {err} > {LAMA_CPU_TOL}")
 
     (ymin, ymax, r0, out_h), d_img, d_mask = band_batch(bf16, frames, mask)
-    comps = [inp._band_forward(d_img, d_mask, r0, out_h, W).cpu().numpy().astype(int)
+    comps = [inp._band_forward(inp.model, d_img, d_mask, r0, out_h, W).cpu().numpy().astype(int)
              for inp in (bf16, f32)]
     diff = np.abs(comps[0] - comps[1])
     hole = np.broadcast_to(mask[None, ymin + r0:ymin + r0 + out_h, :, None] > 0, diff.shape)
@@ -1779,6 +1808,326 @@ def phase_o(card, video, tmp):
             "build_s": build_s, "run_from_prepared": run}
 
 
+
+# ---- phase p: the GUI and the batch queue, with workers on the card ----
+
+GUI_STOP_AT = 10  # percent of the third task's progress at which /api/stop is sent
+# card memory the queue may leave behind: a running sttn-auto worker held
+# ~1500 MiB on an H100 (2223 MiB used with it, 727 MiB after; PERF.md)
+GUI_MEMORY_SLACK_MIB = 256
+
+
+def gui_call(server, path, body=None):
+    """One authorised request to the in-process GuiServer; JSON or bytes."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        server.address + path, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", "X-VSR-Token": server.token},
+        method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=30) as r:
+        data = r.read()
+        if r.headers.get("Content-Type", "").startswith("application/json"):
+            return json.loads(data)
+        return data
+
+
+def card_processes():
+    """(pids of the compute processes nvidia-smi lists, MiB of card memory used)."""
+    def query(arg):
+        return subprocess.run(["nvidia-smi", arg, "--format=csv,noheader,nounits"],
+                              capture_output=True, text=True, timeout=60, check=True).stdout
+    pids = {int(x) for x in query("--query-compute-apps=pid").split() if x.strip().isdigit()}
+    used = int(query("--query-gpu=memory.used").split()[0])
+    return pids, used
+
+
+def task_timings(state, name, seen):
+    """A task's worker log lines in /api/state order, its wall seconds from
+    the first poll that saw it processing to the first that saw it done,
+    and the worker's own processing time (its "processing time:" line)."""
+    lines = [e for e in state["logs"] if e["task"] == name]
+    processing = [float(m.group(1)) for e in lines
+                  for m in [re.match(r"processing time: ([\d.]+)s", e["message"])] if m]
+    wall = seen[name]["done"] - seen[name]["processing"]
+    return lines, wall, processing[0] if processing else None
+
+
+def phase_p(card, video, tmp):
+    """(see the module docstring)"""
+    import cv2
+
+    from vsr_tpu_torch.config import Config, InpaintMode
+    from vsr_tpu_torch.gui.server import GuiServer
+    from vsr_tpu_torch.io.video import read_video_info
+    from vsr_tpu_torch.ops import token_attention
+    from vsr_tpu_torch.pipeline import SubtitleRemover
+    from vsr_tpu_torch.tasks import TaskOptions, TaskRunner, TaskStatus
+
+    torch.cuda.empty_cache()  # this process's cached blocks, for the workers
+    models = os.path.join(tmp, "models_npz")
+    copy = os.path.join(tmp, "subtitles_copy.mp4")
+    shutil.copyfile(video, copy)
+    picture = os.path.join(tmp, "gui_picture.png")
+    reader = cv2.VideoCapture(video)
+    for _ in range(PICTURE_FRAME):
+        ok, frame = reader.read()
+    reader.release()
+    cv2.imwrite(picture, frame)
+    outputs = [os.path.join(tmp, f"gui_{i}{ext}") for i, ext in enumerate((".mp4", ".png", ".mp4"))]
+    names = [os.path.basename(p) for p in (video, picture, copy)]
+    device_line = f"device: cuda:0 ({torch.cuda.get_device_name(0)})"
+
+    old_models = os.environ.get("VSR_TPU_MODELS")
+    os.environ["VSR_TPU_MODELS"] = models  # the workers' weights: phase o's prepared .npz
+    server = GuiServer(port=0, config=Config(), config_path=os.path.join(tmp, "gui.json"),
+                       device="cuda")
+    server.start()
+    seen = {n: {} for n in names}  # wall-clock times, as the log entries carry
+    stop_pid = used_running = None
+    try:
+        gui_call(server, "/api/tasks", {"paths": [video, picture, copy]})
+        for i, out in enumerate(outputs):
+            gui_call(server, f"/api/task/{i}/options",
+                     {"sub_areas": [list(SUB_AREA)], "output_path": out})
+        _, used_before = card_processes()
+        t_run = time.time()
+        if not gui_call(server, "/api/run", {})["started"]:
+            raise AssertionError("[p] /api/run did not start the queue")
+        deadline = t_run + 600
+        while True:
+            state = gui_call(server, "/api/state")
+            now = time.time()
+            for task in state["tasks"]:
+                if task["status"] != "pending":
+                    seen[task["name"]].setdefault("processing", now)
+                if task["status"] in ("completed", "failed"):
+                    seen[task["name"]].setdefault("done", now)
+            third = state["tasks"][2]
+            if stop_pid is None and third["status"] == "processing" \
+                    and third["progress"] > GUI_STOP_AT:
+                stop_pid = server.manager._current_proc.pid
+                listed, used_running = card_processes()
+                gui_call(server, "/api/stop", {})
+                log(f"[p] /api/stop at {third['progress']}% of the third task: worker pid "
+                    f"{stop_pid} ({'listed' if stop_pid in listed else 'not listed'} by "
+                    f"nvidia-smi, card memory used {used_running} MiB)")
+            if all("done" in seen[n] for n in names) and not state["running"]:
+                break
+            if now > deadline:
+                raise AssertionError(f"[p] the queue did not finish: {state['tasks']}")
+            time.sleep(0.1)
+        server.manager.join(30)
+        preview = gui_call(server, "/api/preview/0")
+    finally:
+        server.stop()
+        if old_models is None:
+            os.environ.pop("VSR_TPU_MODELS", None)
+        else:
+            os.environ["VSR_TPU_MODELS"] = old_models
+
+    statuses = [t["status"] for t in state["tasks"]]
+    errors = [t["error"] for t in state["tasks"]]
+    if statuses != ["completed", "completed", "failed"] or errors[2] != "stopped":
+        raise AssertionError(f"[p] statuses {statuses}, errors {errors}")
+    if state["tasks"][1]["inpaint_mode"] != "lama":
+        raise AssertionError(f"[p] the picture task runs {state['tasks'][1]['inpaint_mode']}")
+    jpeg = cv2.imdecode(np.frombuffer(preview, np.uint8), cv2.IMREAD_COLOR)
+    if jpeg is None or jpeg.shape[1] <= jpeg.shape[0]:
+        raise AssertionError("[p] the preview is not a side-by-side JPEG")
+    deadline = time.perf_counter() + 30
+    while True:  # a killed process's CUDA context is freed shortly after it exits
+        listed, used_after = card_processes()
+        if stop_pid not in listed or time.perf_counter() > deadline:
+            break
+        time.sleep(0.5)
+    # nvidia-smi may list no pid of a container's processes: the card's memory
+    # used must also come back to what it was before the first worker started
+    if stop_pid in listed or used_after > used_before + GUI_MEMORY_SLACK_MIB:
+        raise AssertionError(f"[p] the stopped worker {stop_pid} still holds the card: "
+                             f"{used_after} MiB used, {used_before} MiB before the queue")
+    log(f"[p] the stopped worker's pid is gone from nvidia-smi; card memory used "
+        f"{used_after} MiB after the queue, {used_before} MiB before it, {used_running} MiB "
+        f"with the stopped worker running")
+
+    tasks = []
+    for i, name in enumerate(names):
+        lines, wall, processing = task_timings(state, name, seen)
+        worker = [e for e in lines if not e["message"].startswith("image task:")]
+        if not worker or worker[0]["message"] != device_line:
+            raise AssertionError(f"[p] task {name}: first worker line "
+                                 f"{worker[0]['message'] if worker else None!r}, "
+                                 f"expected {device_line!r}")
+        row = {"name": name, "mode": state["tasks"][i]["inpaint_mode"],
+               "status": statuses[i], "wall_s": wall, "processing_s": processing,
+               "startup_s": None if processing is None else wall - processing,
+               "to_device_line_s": worker[0]["t"] - seen[name]["processing"]}
+        tasks.append(row)
+        log(f"[p] task {i + 1} {name} ({row['mode']}, {statuses[i]}): wall {wall:.2f} s from "
+            f"processing to done, worker's processing time "
+            f"{'-' if processing is None else f'{processing:.1f} s'}, start-up "
+            f"{'-' if processing is None else f'{wall - processing:.2f} s'}; first line "
+            f"{worker[0]['message']!r} {row['to_device_line_s']:.2f} s after the task started "
+            f"on {card}")
+    queue_s = max(seen[n]["done"] for n in names) - t_run
+    info = read_video_info(outputs[0])
+    written = cv2.imread(outputs[1])
+    if (info.frame_count, info.width, info.height) != (N_FRAMES, W, H) or written is None:
+        raise AssertionError(f"[p] outputs: {info}, picture {written is None}")
+    unchanged = bool(np.array_equal(written, cv2.imread(picture)))
+    how = ("unchanged (the random DBNet found no text, so LaMa did not run)" if unchanged
+           else "inpainted by LaMa")
+    log(f"[p] the queue took {queue_s:.2f} s from /api/run; the picture was written {how}")
+
+    # the first task's video in this process, same weights and PyTorch defaults
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inproc = os.path.join(tmp, "gui_inprocess.mp4")
+    remover = SubtitleRemover(video, output_path=inproc, sub_areas=[SUB_AREA],
+                              config=Config(compute_dtype="bfloat16"), checkpoint_dir=models,
+                              device="cuda")
+    token_attention.launches = 0
+    _, inproc_s = timed(remover.run)
+    launches = token_attention.launches
+    a, b = (np.stack(decoded(p)).astype(np.int16) for p in (outputs[0], inproc))
+    if a.shape != b.shape:
+        raise AssertionError(f"[p] worker output {a.shape}, in-process {b.shape}")
+    diff = np.abs(a - b)
+    u8_max, u8_mean = int(diff.max()), float(diff.mean())
+    log(f"[p] the same video through SubtitleRemover.run() in this process: {inproc_s:.2f} s, "
+        f"{launches} kernel launches; worker vs in-process output uint8 max {u8_max}, mean "
+        f"{u8_mean:.5f}")
+    if u8_max > MAX_U8_DIFF:
+        raise AssertionError(f"[p] worker vs in-process max uint8 difference {u8_max}")
+
+    runner = TaskRunner(config=Config(inpaint_mode=InpaintMode.LAMA), device="cuda")
+    out_png = os.path.join(tmp, "runner.png")
+    task = runner.add(picture, TaskOptions(sub_areas=[SUB_AREA]), output_path=out_png)
+    _, runner_s = timed(runner.run_all)
+    if task.status != TaskStatus.COMPLETED or cv2.imread(out_png) is None:
+        raise AssertionError(f"[p] TaskRunner: {task.status} {task.error}")
+    log(f"[p] TaskRunner(device='cuda') on the PNG: completed in {runner_s:.2f} s (spawn, "
+        f"set-up and picture mode)")
+    return {"tasks": tasks, "queue_s": queue_s, "picture_unchanged": unchanged,
+            "worker_vs_inprocess_u8": {"max": u8_max, "mean": u8_mean},
+            "inprocess_run_s": inproc_s, "inprocess_launches": launches,
+            "stopped_worker_gone": True,
+            "card_memory_mib": {"before": used_before, "third_running": used_running,
+                                "after": used_after},
+            "task_runner_png_s": runner_s}
+
+
+# ---- phase q: the inpainters' mesh on the card ----
+
+def u8_split_diff(a, b):
+    d = np.abs(np.asarray(a).astype(np.int16) - np.asarray(b).astype(np.int16))
+    return int(d.max()), float((d > 0).mean())
+
+
+def check_split(phase, what, single, split, frac):
+    u8_max, share = u8_split_diff(single, split)
+    if u8_max > 1 or share > frac:
+        raise AssertionError(f"[{phase}] {what}: split vs single max {u8_max} uint8, "
+                             f"{100 * share:.3f}% of values differ (limits 1, {100 * frac}%)")
+    return u8_max, share
+
+
+def warm_timed(fn):
+    """timed(fn) after one untimed call (cuDNN plans, the allocator)."""
+    fn()
+    return timed(fn)
+
+
+def mesh_sttn(model, dev, band_frames, mesh):
+    """One chunk through STTNWindowEngine, alone or over the mesh: (frames,
+    seconds, kernel launches), after a warm run."""
+    from vsr_tpu_torch.inpaint.engine import STTNWindowEngine
+    from vsr_tpu_torch.ops import token_attention
+    from vsr_tpu_torch.parallel.mesh import replicate
+
+    engine = STTNWindowEngine(model, dev, clip_len=len(band_frames), input_hw=(120, 640),
+                              stride=5, ref_length=10, window_batch=1,
+                              mesh=replicate(model, mesh) if mesh else None)
+    engine.fetch(engine.dispatch(band_frames))
+    token_attention.launches = 0
+    out, dt = timed(lambda: engine.fetch(engine.dispatch(band_frames)))
+    return out, dt, token_attention.launches, engine
+
+
+def phase_q(card, frames, mask):
+    """(see the module docstring)"""
+    from vsr_tpu_torch.config import Config
+    from vsr_tpu_torch.inpaint.lama import LamaInpainter
+    from vsr_tpu_torch.inpaint.propainter import PropainterInpainter
+    from vsr_tpu_torch.inpaint.sttn_auto import STTNAutoInpainter
+    from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
+
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    meshes = {"two replicas on cuda:0": [dev, dev]}
+    if torch.cuda.device_count() >= 2:
+        meshes["every card"] = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        log("[q] one card visible: the split runs on one card only (two replicas on cuda:0); "
+            "no cross-card copy is exercised")
+    cfg = Config(compute_dtype="bfloat16")
+    result = {"cards": torch.cuda.device_count(), "meshes": {}}
+
+    sttn = STTNAutoInpainter(config=cfg, device=dev)
+    band = get_inpaint_area_by_mask(W, H, sttn._split_h(W), mask[:, :, None])[0]
+    band_frames = sttn._stack_band(frames[:50], band)
+    single, single_s, single_launches, _ = mesh_sttn(sttn.model, dev, band_frames, None)
+    lama = LamaInpainter(config=cfg, device=dev)
+    tame_lama(lama.model)
+    lama_single, lama_single_s = warm_timed(lambda: lama(frames[:16], mask))
+    pp_single_inp = PropainterInpainter(config=cfg, device=dev)
+    pp_single, pp_single_s = warm_timed(lambda: pp_single_inp(frames[:20], mask))
+    log(f"[q] single device: sttn-auto chunk of 50 frames {single_s:.3f} s ({single_launches} "
+        f"launches), LaMa band batch of 16 {lama_single_s:.3f} s, ProPainter 20-frame band "
+        f"clip {pp_single_s:.3f} s on {card}")
+
+    for label, mesh in meshes.items():
+        split, split_s, launches, engine = mesh_sttn(sttn.model, dev, band_frames, mesh)
+        want = 16 * engine.num_windows_sharded // engine.window_batch
+        if launches != want or (engine.num_windows_sharded == engine.num_windows
+                                and launches != single_launches):
+            raise AssertionError(f"[q] {label}: sttn launches {launches}, single device "
+                                 f"{single_launches}, expected {want}")
+        sttn_diff = check_split("q", f"{label} sttn-auto", single, split, 0.01)
+
+        lama_split_inp = LamaInpainter(config=cfg, device=dev, mesh=mesh)
+        for replica in {id(m): m for m in lama_split_inp.replicas}.values():
+            replica.load_state_dict(lama.model.state_dict())
+        lama_split, lama_split_s = warm_timed(lambda: lama_split_inp(frames[:16], mask))
+        lama_diff = check_split("q", f"{label} LaMa", lama_single, lama_split, 0.05)
+
+        pp_split_inp = PropainterInpainter(config=cfg, device=dev, mesh=mesh)
+        if not all(torch.equal(a, b) for a, b in zip(
+                pp_single_inp.generator.state_dict().values(),
+                pp_split_inp.generator.state_dict().values())):
+            raise AssertionError("[q] the ProPainter generators' seeded weights differ")
+        pp_split, pp_split_s = warm_timed(lambda: pp_split_inp(frames[:20], mask))
+        pp_diff = check_split("q", f"{label} ProPainter", pp_single, pp_split, 0.01)
+        del lama_split_inp, pp_split_inp
+        log(f"[q] {label} ({', '.join(map(str, mesh))}): sttn-auto {split_s:.3f} s, {launches} "
+            f"launches ({engine.num_windows_sharded} windows in {len(mesh)} shards), split vs "
+            f"single max {sttn_diff[0]} uint8, {100 * sttn_diff[1]:.4f}% differ; LaMa "
+            f"{lama_split_s:.3f} s, max {lama_diff[0]}, {100 * lama_diff[1]:.4f}%; ProPainter "
+            f"{pp_split_s:.3f} s, max {pp_diff[0]}, {100 * pp_diff[1]:.4f}% on {card}")
+        result["meshes"][label] = {
+            "devices": [str(d) for d in mesh],
+            "sttn": {"s": split_s, "single_s": single_s, "launches": launches,
+                     "single_launches": single_launches, "u8_max": sttn_diff[0],
+                     "differ": sttn_diff[1]},
+            "lama": {"s": lama_split_s, "single_s": lama_single_s, "u8_max": lama_diff[0],
+                     "differ": lama_diff[1]},
+            "propainter": {"s": pp_split_s, "single_s": pp_single_s, "u8_max": pp_diff[0],
+                           "differ": pp_diff[1]}}
+    return result
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1826,6 +2175,10 @@ def main(argv) -> int:
         del lama, pp_bf16  # their device memory, for phase o's subprocesses
         bootstrap = phase_o(card, video, tmp)
         done("o")
+        gui = phase_p(card, video, tmp)
+        done("p")
+        mesh = phase_q(card, frames, mask)
+        done("q")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # one sttn-auto transformer block's two kernel scales, as that path calls them
@@ -1865,6 +2218,8 @@ def main(argv) -> int:
         "fps_1080p_bf16_propainter": pp_run.pop("fps"),
         "propainter": pp_run,
         "bootstrap": bootstrap,
+        "gui": gui,
+        "mesh": mesh,
         "card": card,
     }]}))
     print(json.dumps({"ok": True, "device": {

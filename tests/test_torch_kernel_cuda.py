@@ -306,3 +306,24 @@ def test_kernel_sttn_det_scale(dtype, L, n_valid, cuda_device):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **F32_TOL)
     else:
         _assert_bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_launch_on_another_card_keeps_current_device(dtype, cuda_device):
+    """A launch for tensors on the last card leaves the calling thread's
+    current device as it was (the launchers restore it on every return),
+    and its result is right."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(cuda_device)
+    q, k, v, bias = _inputs(9, (2, 300, 64), n_valid=200)
+    q, k, v = (t.to(last, dtype) for t in (q, k, v))
+    bias = bias.to(last)
+    got = ta.flash_token_attention(q, k, v, bias)
+    assert torch.cuda.current_device() == cuda_device.index
+    assert got.device == last
+    want = ta.token_attention_reference(q, k, v, bias)
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)

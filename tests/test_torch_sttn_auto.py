@@ -130,13 +130,28 @@ def test_cli_end_to_end(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv,item", [
     (["--gui"], "item 11"),
 ])
-def test_cli_unported_modes_exit_with_roadmap_item(argv, item, capsys):
-    from vsr_tpu_torch import cli
+def test_cli_unported_modes_exit_with_roadmap_item(argv, item, monkeypatch):
+    """ROADMAP.md item 11 (the GUI) is ported: `--gui --port P --device cpu`
+    no longer exits with an error naming the item but builds a GuiServer on
+    port P whose workers run on cpu, and serves it (serve_forever patched
+    out here)."""
+    import socket
 
-    with pytest.raises(SystemExit) as exc:
-        cli.main(argv + ["--device", "cpu"])
-    assert exc.value.code != 0
-    assert item in capsys.readouterr().err
+    from vsr_tpu_torch import cli
+    from vsr_tpu_torch.gui.server import GuiServer
+
+    assert item == "item 11" and argv == ["--gui"]
+    with socket.socket() as s:  # a free port
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    served = []
+    monkeypatch.setattr(GuiServer, "serve_forever",
+                        lambda self: (served.append(self), self.httpd.server_close()))
+    assert cli.main(argv + ["--port", str(port), "--device", "cpu"]) == 0
+    (server,) = served
+    assert server.httpd.server_address[1] == port
+    assert server.manager.device == "cpu"
+    assert server.config_path == cli.DEFAULT_CONFIG_PATH
 
 
 def test_picture_input_raises_with_roadmap_item(tmp_path):
@@ -189,7 +204,12 @@ def test_port_never_imports_jax():
         "        'vsr_tpu_torch.ops.deform_conv', 'vsr_tpu_torch.scenes.content',\n"
         "        'vsr_tpu_torch.convert.__main__', 'vsr_tpu_torch.convert.paddle_dbnet',\n"
         "        'vsr_tpu_torch.prepare', 'vsr_tpu_torch.warmup', 'vsr_tpu_torch.scenes.detectors',\n"
-        "        'vsr_tpu_torch.utils.common', 'vsr_tpu_torch.utils.version_service'} <= set(names)\n"
+        "        'vsr_tpu_torch.utils.common', 'vsr_tpu_torch.utils.version_service',\n"
+        "        'vsr_tpu_torch.tasks', 'vsr_tpu_torch.utils.remote_call',\n"
+        "        'vsr_tpu_torch.utils.process_manager', 'vsr_tpu_torch.utils.tracing',\n"
+        "        'vsr_tpu_torch.gui', 'vsr_tpu_torch.gui.__main__', 'vsr_tpu_torch.gui.manager',\n"
+        "        'vsr_tpu_torch.gui.selection_model', 'vsr_tpu_torch.gui.server',\n"
+        "        'vsr_tpu_torch.parallel', 'vsr_tpu_torch.parallel.mesh'} <= set(names)\n"
         "assert 'vsr_tpu_torch.convert.__main__' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'vsr_tpu'))\n"
         "print(len(names), bad)\n"

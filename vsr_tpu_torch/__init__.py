@@ -9,6 +9,9 @@ its own copies of the host modules it needs.
 Package map (each module mirrors its ``vsr_tpu`` namesake):
   cli, pipeline  — command line and orchestrator (every inpaint mode,
                    picture mode)
+  gui/, tasks    — browser GUI and headless batch queue; each task runs in
+                   a spawned worker on the chosen device
+  parallel/      — inference meshes: one model replica per device
   prepare, warmup — model bootstrap (--prepare-models) and warm-up (--warmup)
   config, i18n, version — settings (same JSON as vsr_tpu's), strings
   io/, masks/, native/ — video I/O, mask, band and interval helpers,
@@ -20,7 +23,8 @@ Package map (each module mirrors its ``vsr_tpu`` namesake):
   convert/       — reference checkpoints -> JAX-package params (numpy) and
                    JAX-package params -> torch state dicts
   scenes/        — scene-cut detectors
-  utils/         — device selection, file helpers, release check
+  utils/         — device selection, file helpers, release check, worker
+                   channel and process registry, stage timing and tracing
 """
 
 from vsr_tpu_torch.version import __version__  # noqa: F401

@@ -8,9 +8,10 @@
     python -m vsr_tpu_torch --prepare-models REF_MODELS_DIR [--models DIR]
     python -m vsr_tpu_torch --warmup [MODE ...] [--warmup-sizes H W] [--models DIR]
     python -m vsr_tpu_torch --check-update
+    python -m vsr_tpu_torch --gui [--port 8123] [--config PATH] [--device cuda]
+                            (browser GUI; task workers run on --device)
 
-The flags and defaults are those of ``vsr_tpu.cli`` plus ``--device``. A
-flag that is not ported yet exits with an error naming its ROADMAP.md item.
+The flags and defaults are those of ``vsr_tpu.cli`` plus ``--device``.
 """
 
 from __future__ import annotations
@@ -21,9 +22,6 @@ from typing import List, Optional
 from vsr_tpu_torch.config import Config, InpaintMode
 
 DEFAULT_CONFIG_PATH = "config/config.json"  # reference convention
-
-# flag -> ROADMAP.md Queue 1 item that ports it
-_UNPORTED_FLAGS = {"gui": "11"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -113,10 +111,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             device=args.device,
         )
         return 0
-    for flag, item in _UNPORTED_FLAGS.items():
-        if getattr(args, flag) not in (None, False):
-            parser.error(f"--{flag.replace('_', '-')} is not ported to vsr_tpu_torch "
-                         f"yet (ROADMAP.md Queue 1 item {item})")
+    if args.gui:
+        from vsr_tpu_torch.gui.server import GuiServer
+
+        GuiServer(port=args.port, config_path=args.config or DEFAULT_CONFIG_PATH,
+                  device=args.device).serve_forever()
+        return 0
     mode = InpaintMode(args.inpaint_mode)
     if not args.input:
         parser.error("--input/-i is required")

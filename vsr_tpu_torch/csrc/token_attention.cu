@@ -621,6 +621,21 @@ int make_map(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1, uint6
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// Makes `device` current for one launch and gives the calling thread its own
+// current device back on every return path: a launch for a tensor on another
+// card must not move where the caller's later allocations land.
+struct DeviceScope {
+  int previous = -1;
+  cudaError_t err;
+  explicit DeviceScope(int device) {
+    err = cudaGetDevice(&previous);
+    if (err == cudaSuccess && previous != device) err = cudaSetDevice(device);
+  }
+  ~DeviceScope() {
+    if (previous >= 0) cudaSetDevice(previous);
+  }
+};
+
 int launch_bf16(const void* q, const void* k, const void* v, const float* bias, void* out,
                 void* p, float* part_m, float* part_l, int B, int Nq, int Nk, int D, float scale,
                 int device, cudaStream_t st) {
@@ -629,7 +644,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* bias, 
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
         reinterpret_cast<uintptr_t>(p)) % 16) != 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.err;
   if (err != cudaSuccess) return (int)err;
   const int q_tiles = (Nq + kTile - 1) / kTile, k_tiles = (Nk + kTile - 1) / kTile;
   const int score_q_tiles = (Nq + kScoreRows - 1) / kScoreRows;
@@ -1093,7 +1109,8 @@ int launch_f32(const float* q, const float* k, const float* v, const float* bias
         reinterpret_cast<uintptr_t>(p) | reinterpret_cast<uintptr_t>(k_split) |
         reinterpret_cast<uintptr_t>(vt_split)) % 16) != 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.err;
   if (err != cudaSuccess) return (int)err;
   const int q_tiles = (Nq + kF32Rows - 1) / kF32Rows, k_tiles = (Nk + kTile - 1) / kTile;
   const int nq_pad = q_tiles * kF32Rows, nk_pad = k_tiles * kTile;

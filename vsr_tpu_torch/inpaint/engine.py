@@ -15,6 +15,14 @@ sees the mask at feature scale (nearest, every 4th pixel), and each window's
 prediction replaces only hole pixels of the model-size source frame before
 the overlap average.
 
+With a ``mesh`` (one model replica per device, ``parallel.mesh.replicate``)
+the windows, which are independent once the chunk is encoded, are split
+into one contiguous shard per replica, padded to equal shards with
+all-invalid windows as ``vsr_tpu``'s mesh engine pads them: each shard's
+window features are gathered on the first device and copied to its
+replica, which runs the transformer and the decoder and sends its uint8
+predictions back; the composite stays on the first device, in window order.
+
 ``dispatch``/``fetch`` keep the work asynchronous: dispatch copies the chunk
 from pinned host memory, enqueues the compute and the copy back into a
 pinned output buffer on the current stream and records an event; fetch
@@ -25,7 +33,7 @@ chunks in flight never share one.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -124,6 +132,7 @@ class STTNWindowEngine:
         window_batch: int = 0,
         masked: bool = False,
         out_rows: Optional[Tuple[int, int]] = None,
+        mesh: Optional[Sequence[torch.nn.Module]] = None,
     ):
         self.model = model
         self.device = device
@@ -137,7 +146,15 @@ class STTNWindowEngine:
         self.out_rows = out_rows
         self.n_max = 2 * stride + 1
         self.num_windows = math.ceil(clip_len / stride)
-        self.window_batch = _auto_window_batch(self.num_windows, window_batch)
+        # mesh: the replicas, one per mesh device (entries may repeat one)
+        self.mesh = list(mesh) if mesh else None
+        if self.mesh:
+            n = len(self.mesh)
+            self.num_windows_sharded = math.ceil(self.num_windows / n) * n
+            self.window_batch = _auto_window_batch(self.num_windows_sharded // n, window_batch)
+        else:
+            self.num_windows_sharded = self.num_windows
+            self.window_batch = _auto_window_batch(self.num_windows, window_batch)
 
     # ---- device program ----
     @torch.inference_mode()
@@ -157,24 +174,12 @@ class STTNWindowEngine:
             x = x * (1.0 - masks[..., None])
             feat_masks = masks[:, ::4, ::4]
         feats = self.model.encode(x)  # [T, h, w, C]
-        preds = []
-        wb = self.window_batch
-        for w0 in range(0, idx.shape[0], wb):
-            widx, wvalid = idx[w0 : w0 + wb], valid[w0 : w0 + wb]
-            # invalid slots carry clamped-index (finite) features; the key
-            # mask keeps them out of attention and they are never composited
-            wmask = feat_masks[widx] if feat_masks is not None else None
-            out = self.model.transform(feats[widx], wvalid, wmask)
-            nb = out[:, : self.n_max]  # neighbour slots only
-            n, h, w, c = nb.shape[1:]
-            dec = self.model.decode(nb.reshape(-1, h, w, c))
-            preds.append(dec.reshape(-1, n, *dec.shape[1:]))
-        preds = torch.cat(preds)  # [Wn, n_max, H, W, 3]
-        preds_u8 = ((preds + 1.0) * 0.5 * 255.0).clamp(0, 255).to(torch.uint8)
-        preds_u8 = preds_u8.flip(-1)  # RGB -> BGR
+        if self.mesh is None:
+            preds_u8 = self._predict(self.model, feats, feat_masks, idx, valid)
+        else:
+            preds_u8 = self._predict_sharded(feats, feat_masks, idx, valid)
 
-        r0, r1 = self.out_rows if self.out_rows is not None else (0, preds_u8.shape[2])
-        preds_u8 = preds_u8[:, :, r0:r1]
+        r0, r1 = self.out_rows if self.out_rows is not None else (0, x.shape[1])
 
         # per-frame contributions in window order: [T, K, rows, W, 3]
         contrib = preds_u8[fwin, fslot].float()
@@ -188,6 +193,49 @@ class STTNWindowEngine:
             take = (fcount > k)[:, None, None, None]
             comp = torch.where(take, 0.5 * comp + 0.5 * contrib[:, k], comp)
         return comp.to(torch.uint8)
+
+    def _predict(self, model, feats, feat_masks, idx, valid) -> torch.Tensor:
+        """The windows idx/valid [W, L] through ``model`` on the device of
+        ``feats``, in window batches: [W, n_max, rows, W, 3] BGR uint8."""
+        preds = []
+        wb = self.window_batch
+        for w0 in range(0, idx.shape[0], wb):
+            widx, wvalid = idx[w0 : w0 + wb], valid[w0 : w0 + wb]
+            # invalid slots carry clamped-index (finite) features; the key
+            # mask keeps them out of attention and they are never composited
+            wmask = feat_masks[widx] if feat_masks is not None else None
+            out = model.transform(feats[widx], wvalid, wmask)
+            nb = out[:, : self.n_max]  # neighbour slots only
+            n, h, w, c = nb.shape[1:]
+            dec = model.decode(nb.reshape(-1, h, w, c))
+            preds.append(dec.reshape(-1, n, *dec.shape[1:]))
+        preds = torch.cat(preds)  # [W, n_max, H, W, 3]
+        preds_u8 = ((preds + 1.0) * 0.5 * 255.0).clamp(0, 255).to(torch.uint8)
+        r0, r1 = self.out_rows if self.out_rows is not None else (0, preds_u8.shape[2])
+        return preds_u8.flip(-1)[:, :, r0:r1]  # RGB -> BGR
+
+    def _predict_sharded(self, feats, feat_masks, idx, valid) -> torch.Tensor:
+        """_predict over the mesh: the windows (padded with all-invalid ones
+        to num_windows_sharded) in one contiguous shard per replica. Every
+        shard's inputs are gathered and sent before any shard is computed,
+        so no copy waits behind the first device's own shard; the
+        predictions come back to the first device."""
+        extra = self.num_windows_sharded - idx.shape[0]
+        idx = torch.cat([idx, idx.new_zeros((extra, idx.shape[1]))])
+        valid = torch.cat([valid, valid.new_zeros((extra, valid.shape[1]))])
+        per = idx.shape[0] // len(self.mesh)
+        work = []
+        for i, replica in enumerate(self.mesh):
+            dev = next(replica.parameters()).device
+            sidx = idx[i * per : (i + 1) * per]
+            local = torch.arange(sidx.numel(), device=dev).reshape(sidx.shape)
+            sfeats = feats[sidx].flatten(0, 1).to(dev, non_blocking=True)
+            smasks = None
+            if feat_masks is not None:
+                smasks = feat_masks[sidx].flatten(0, 1).to(dev, non_blocking=True)
+            svalid = valid[i * per : (i + 1) * per].to(dev, non_blocking=True)
+            work.append((replica, sfeats, smasks, local, svalid))
+        return torch.cat([self._predict(*w).to(self.device, non_blocking=True) for w in work])
 
     # ---- host side ----
     def _to_device(self, a: np.ndarray) -> torch.Tensor:

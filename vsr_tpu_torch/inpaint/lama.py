@@ -13,6 +13,11 @@
   input) is formed on the device for those rows, and the host copies back
   only mask pixels, so every other pixel stays the input's.
 
+With a ``mesh`` (``parallel.mesh``), the band path's batch rounds up to a
+multiple of the mesh size and each device's replica of the generator runs
+its equal share of the batch's frames, uploaded from and downloaded to the
+host directly; the picture path stays on the first device.
+
 uint8 BGR crosses the bus both ways; normalization, clipping and the cast
 run on the device. Transfers are pinned and asynchronous, with up to three
 batches in flight (as the STTN engine does), so the host crops and pastes
@@ -37,6 +42,7 @@ from vsr_tpu_torch.config import Config
 from vsr_tpu_torch.inpaint.weights import load_lama_weights
 from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
 from vsr_tpu_torch.models.lama import LamaGenerator
+from vsr_tpu_torch.parallel.mesh import replicate
 from vsr_tpu_torch.utils.device import resolve_device
 
 MINI_BATCH = 4  # picture path (ref :38)
@@ -65,6 +71,7 @@ class LamaInpainter:
         checkpoint_path: Optional[str] = None,
         config: Optional[Config] = None,
         device: Union[str, torch.device] = "cuda",
+        mesh: Optional[Sequence[Union[str, torch.device]]] = None,
     ):
         self.config = config or Config()
         self.device = resolve_device(device)
@@ -72,6 +79,8 @@ class LamaInpainter:
         load_lama_weights(model, checkpoint_path)
         dtype = torch.bfloat16 if self.config.compute_dtype == "bfloat16" else torch.float32
         self.model = model.to(self.device, dtype).eval()
+        # the band path's replicas, one per mesh device (None: the model alone)
+        self.replicas = replicate(self.model, mesh) if mesh else None
 
     # ---- transfers ----
     @property
@@ -88,9 +97,10 @@ class LamaInpainter:
         view[len(arrays):] = arrays[-1]
         return buf
 
-    def _upload(self, host: torch.Tensor) -> torch.Tensor:
-        """Asynchronous H2D of a staged buffer (a no-op on the CPU)."""
-        return host.to(self.device, non_blocking=True)
+    def _upload(self, host: torch.Tensor, device: Optional[torch.device] = None) -> torch.Tensor:
+        """Asynchronous H2D of a staged buffer to ``device`` (default: the
+        inpainter's; a no-op on the CPU)."""
+        return host.to(device or self.device, non_blocking=True)
 
     def _download(self, out: torch.Tensor):
         """Enqueue the copy of ``out`` into pinned host memory; returns
@@ -100,7 +110,7 @@ class LamaInpainter:
         done = None
         if self._cuda:
             done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
+            done.record(torch.cuda.current_stream(out.device))
         return host, done
 
     @staticmethod
@@ -119,17 +129,18 @@ class LamaInpainter:
         return (self.model(img, msk) * 255.0).clamp(0, 255).to(torch.uint8)
 
     @torch.inference_mode()
-    def _band_forward(self, img_u8: torch.Tensor, mask_u8: torch.Tensor, r0: int,
+    def _band_forward(self, model, img_u8: torch.Tensor, mask_u8: torch.Tensor, r0: int,
                       out_h: int, out_w: int) -> torch.Tensor:
-        """The composite rows [r0, r0 + out_h) of a band batch: the
-        prediction inside the mask, the input elsewhere, [B, out_h, out_w, 3]."""
+        """The composite rows [r0, r0 + out_h) of a band batch through
+        ``model`` (a replica on the batch's device): the prediction inside
+        the mask, the input elsewhere, [B, out_h, out_w, 3]."""
         img = img_u8.float() / 255.0
         mskb = mask_u8 > 0  # [1, H, W, 1]
         msk = mskb.float().expand(*img.shape[:3], 1)
         if out_h % 2 == 0:
-            pred = self.model(img, msk, out_rows=(r0, out_h))
+            pred = model(img, msk, out_rows=(r0, out_h))
         else:  # odd out_h (a band shorter than 64 rows): full output
-            pred = self.model(img, msk)[:, r0:r0 + out_h]
+            pred = model(img, msk)[:, r0:r0 + out_h]
         pred_u8 = (pred * 255.0).clamp(0, 255).to(torch.uint8)
         comp = torch.where(mskb[:, r0:r0 + out_h], pred_u8, img_u8[:, r0:r0 + out_h])
         return comp[:, :, :out_w]
@@ -211,21 +222,32 @@ class LamaInpainter:
         width = out[0].shape[1]
         y0 = ymin + r0
         hole3 = mask[y0:y0 + out_h] > 0  # [out_h, W, 1]
-        # the band mask is the same for every frame: on the device once (its
-        # pinned staging lives to the end of the band, past its copy)
+        # the band mask is the same for every frame: on each device once (its
+        # pinned staging lives to the end of the band, past its copies)
         host_mask = self._stage([pad_to_modulo(mask[ymin:ymax])], 1)
-        d_mask = self._upload(host_mask)
+        replicas = self.replicas or [self.model]
+        devices = [next(m.parameters()).device for m in replicas]
+        d_mask = {dev: self._upload(host_mask, dev) for dev in devices}
+        # each replica takes an equal share of every batch
+        share = -(-BAND_BATCH // len(replicas))
+        batch = share * len(replicas)
 
-        def finish(download, start: int, k: int, _staged) -> None:
-            self._paste(out[start:start + k], self._wait(download)[:k], y0, hole3)
+        def finish(downloads, start: int, k: int, _staged) -> None:
+            parts = [self._wait(d) for d in downloads]
+            rows = parts[0] if len(parts) == 1 else np.concatenate(parts)
+            self._paste(out[start:start + k], rows[:k], y0, hole3)
 
         pending: List[tuple] = []
-        for start in range(0, len(out), BAND_BATCH):
-            k = min(BAND_BATCH, len(out) - start)
+        for start in range(0, len(out), batch):
+            k = min(batch, len(out) - start)
             staged = self._stage(
-                [pad_to_modulo(out[j][ymin:ymax]) for j in range(start, start + k)], BAND_BATCH)
-            comp = self._band_forward(self._upload(staged), d_mask, r0, out_h, width)
-            pending.append((self._download(comp), start, k, staged))
+                [pad_to_modulo(out[j][ymin:ymax]) for j in range(start, start + k)], batch)
+            downloads = [
+                self._download(self._band_forward(
+                    model, self._upload(staged[i * share:(i + 1) * share], dev), d_mask[dev],
+                    r0, out_h, width))
+                for i, (model, dev) in enumerate(zip(replicas, devices))]
+            pending.append((downloads, start, k, staged))
             if len(pending) > 2:
                 finish(*pending.pop(0))
         for item in pending:

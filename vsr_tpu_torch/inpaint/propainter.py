@@ -21,6 +21,14 @@ One clip runs in four stages on the device:
    on the device with the reference's uint8 0.5/0.5 overlap blend, in
    window order.
 
+With a ``mesh`` (``parallel.mesh``), the window sweep runs its windows in
+groups of one window per device: a window's prediction depends only on the
+clip's encoding, the completed flows and the masks, never on the composite,
+so each device's generator replica predicts one window of the group from
+inputs gathered on the first device, and the predictions come back to be
+composited there in window order, as without a mesh. Stages 1-3 and the
+encoding run on the first device.
+
 Masks are dilated with scipy's binary_dilation, 4 iterations, for both the
 flow and the frame masks (ref read_mask). The host sends the clip's uint8
 BGR frames once and receives only the rows that hold the dilated mask:
@@ -37,7 +45,7 @@ the frame-validity masks that made boundary windows differ.
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import scipy.ndimage
@@ -53,6 +61,7 @@ from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
 from vsr_tpu_torch.models.propainter.flow_completion import RecurrentFlowCompleteNet
 from vsr_tpu_torch.models.propainter.generator import ProPainterGenerator, image_propagation
 from vsr_tpu_torch.models.propainter.raft import RAFT
+from vsr_tpu_torch.parallel.mesh import replicate
 from vsr_tpu_torch.utils.device import items_per_chunk, resolve_device
 
 ENCODE_CHUNK = 16  # frames a RAFT / generator encoder call takes
@@ -122,6 +131,7 @@ class PropainterInpainter:
         generator_kwargs: Optional[dict] = None,
         raft_kwargs: Optional[dict] = None,
         device: Union[str, torch.device] = "cuda",
+        mesh: Optional[Sequence[Union[str, torch.device]]] = None,
     ):
         self.config = config or Config()
         self.device = resolve_device(device)
@@ -143,6 +153,9 @@ class PropainterInpainter:
         self.raft = raft.to(self.device, torch.float32).eval()
         self.flow_net = flow_net.to(self.device, dtype).eval()
         self.generator = generator.to(self.device, dtype).eval()
+        # the window sweep's generators, one per mesh device (None: the
+        # generator alone)
+        self.replicas = replicate(self.generator, mesh) if mesh else None
 
     # ---- stages ----
     def _compute_flows(self, frames_n: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -232,22 +245,42 @@ class PropainterInpainter:
         bmask = hole[:, r0:r1].to(torch.uint8)  # [1, r1 - r0, W]
         comp = torch.empty_like(src)
         written = [False] * T
-        for ns, rs in self._windows(T):
-            sel = torch.tensor(ns + rs, device=self.device)
-            pair = torch.tensor(ns[:-1], device=self.device)
-            pred = self.generator.forward_encoded(
-                enc_all[:, sel], (comp_f[None, pair], comp_b[None, pair]),
-                masks[None, sel], updated_masks[None, sel], len(ns),
-                masked_windows=masked_windows)[0]
-            pred_u8 = ((pred[:, :, r0:r1] + 1.0) / 2.0 * 255.0).clamp(0, 255).to(torch.uint8)
-            ids = torch.tensor(ns, device=self.device)
-            img = pred_u8 * bmask + src[ids] * (1 - bmask)
-            again = torch.tensor([written[i] for i in ns], device=self.device)
-            blended = (comp[ids].float() * 0.5 + img.float() * 0.5).to(torch.uint8)
-            comp[ids] = torch.where(again[:, None, None, None], blended, img)
-            for i in ns:
-                written[i] = True
+        windows = self._windows(T)
+        replicas = self.replicas or [self.generator]
+        devices = [next(g.parameters()).device for g in replicas]
+        mw = {dev: None if masked_windows is None else masked_windows.to(dev) for dev in devices}
+        for g0 in range(0, len(windows), len(replicas)):
+            group = windows[g0:g0 + len(replicas)]
+            # every window's inputs leave the first device before any window
+            # is computed, so no copy waits behind the first device's window
+            inputs = [self._window_inputs(dev, enc_all, comp_f, comp_b, masks, updated_masks,
+                                          ns, rs) for dev, (ns, rs) in zip(devices, group)]
+            preds = [gen.forward_encoded(*x, len(ns), masked_windows=mw[dev])[0]
+                     for gen, dev, x, (ns, _) in zip(replicas, devices, inputs, group)]
+            for (ns, _), pred in zip(group, preds):
+                pred_u8 = ((pred[:, :, r0:r1] + 1.0) / 2.0 * 255.0).clamp(0, 255).to(torch.uint8)
+                pred_u8 = pred_u8.to(self.device, non_blocking=True)
+                ids = torch.tensor(ns, device=self.device)
+                img = pred_u8 * bmask + src[ids] * (1 - bmask)
+                again = torch.tensor([written[i] for i in ns], device=self.device)
+                blended = (comp[ids].float() * 0.5 + img.float() * 0.5).to(torch.uint8)
+                comp[ids] = torch.where(again[:, None, None, None], blended, img)
+                for i in ns:
+                    written[i] = True
         return comp
+
+    def _window_inputs(self, dev, enc_all, comp_f, comp_b, masks, updated_masks, ns, rs):
+        """One window's rows of the clip's encoding, completed flows and
+        masks, gathered on the first device and sent to ``dev``: the
+        generator's forward_encoded arguments before the neighbour count."""
+        sel = torch.tensor(ns + rs, device=self.device)
+        pair = torch.tensor(ns[:-1], device=self.device)
+
+        def to(t):
+            return t.to(dev, non_blocking=True)
+
+        return (to(enc_all[:, sel]), (to(comp_f[None, pair]), to(comp_b[None, pair])),
+                to(masks[None, sel]), to(updated_masks[None, sel]))
 
     # ---- the clip ----
     def inpaint(self, frames_bgr: List[np.ndarray], mask: np.ndarray) -> List[np.ndarray]:

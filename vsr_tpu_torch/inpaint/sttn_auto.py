@@ -23,6 +23,7 @@ from vsr_tpu_torch.masks.intervals import is_frame_number_in_ab_sections
 from vsr_tpu_torch.masks.mask import binarize_mask
 from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
 from vsr_tpu_torch.models.sttn import STTN_AUTO_INPUT_SIZE, STTNGenerator
+from vsr_tpu_torch.parallel.mesh import default_inference_mesh, replicate
 from vsr_tpu_torch.utils.device import adaptive_clip_len, resolve_device
 
 
@@ -38,6 +39,7 @@ class STTNAutoInpainter:
         device: Union[str, torch.device] = "cuda",
     ):
         self.config = config or Config()
+        self._requested_device = device
         self.device = resolve_device(device)
         self.model_input_width, self.model_input_height = input_size
         model = STTNGenerator(variant="auto", use_kernel=self.config.use_pallas)
@@ -50,6 +52,16 @@ class STTNAutoInpainter:
             minimum=self.config.sttn_reference_length,
         )
         self._engines = {}
+        self._replicas = None
+
+    def _mesh(self):
+        """Model replicas over default_inference_mesh (every visible card when
+        the caller asked for "cuda" and there are several), made once; None
+        on one device."""
+        if self._replicas is None:
+            mesh = default_inference_mesh(self._requested_device)
+            self._replicas = replicate(self.model, mesh) if mesh else []
+        return self._replicas or None
 
     def _engine(self, clip_len: int, out_rows=None) -> STTNWindowEngine:
         """One engine per (chunk length, output slice)."""
@@ -64,6 +76,7 @@ class STTNAutoInpainter:
                 ref_length=self.config.sttn_reference_length,
                 window_batch=self.config.window_batch,
                 out_rows=out_rows,
+                mesh=self._mesh(),
             )
         return self._engines[key]
 

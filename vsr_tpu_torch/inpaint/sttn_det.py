@@ -26,6 +26,7 @@ from vsr_tpu_torch.inpaint.paste import band_out_rows, paste_band
 from vsr_tpu_torch.inpaint.weights import load_sttn_weights
 from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
 from vsr_tpu_torch.models.sttn import STTN_DET_INPUT_SIZE, STTNGenerator
+from vsr_tpu_torch.parallel.mesh import default_inference_mesh, replicate
 from vsr_tpu_torch.utils.device import resolve_device
 
 
@@ -41,6 +42,7 @@ class STTNDetInpainter:
         device: Union[str, torch.device] = "cuda",
     ):
         self.config = config or Config()
+        self._requested_device = device
         self.device = resolve_device(device)
         self.model_input_width, self.model_input_height = input_size
         model = STTNGenerator(variant="det", apply_attention_mask=apply_attention_mask,
@@ -51,6 +53,16 @@ class STTNDetInpainter:
         # one engine per (chunk length, output rows): short subtitle ranges
         # give short chunks, so this grows with the distinct range lengths
         self._engines = {}
+        self._replicas = None
+
+    def _mesh(self):
+        """Model replicas over default_inference_mesh (every visible card when
+        the caller asked for "cuda" and there are several), made once; None
+        on one device."""
+        if self._replicas is None:
+            mesh = default_inference_mesh(self._requested_device)
+            self._replicas = replicate(self.model, mesh) if mesh else []
+        return self._replicas or None
 
     def _engine(self, clip_len: int, out_rows=None) -> STTNWindowEngine:
         key = (clip_len, out_rows)
@@ -65,6 +77,7 @@ class STTNDetInpainter:
                 window_batch=self.config.window_batch,
                 masked=True,
                 out_rows=out_rows,
+                mesh=self._mesh(),
             )
         return self._engines[key]
 

@@ -52,6 +52,9 @@ class SubtitleRemover:
         device: Union[str, torch.device] = "cuda",
     ):
         self.video_path = str(video_path)
+        # the STTN inpainters get the device as asked: a bare "cuda" spreads
+        # their windows over every visible card (parallel.mesh)
+        self.requested_device = device
         self.device = resolve_device(device)
         self.config = config or Config()
         self.checkpoint_dir = checkpoint_dir or os.environ.get("VSR_TPU_MODELS", "")
@@ -132,7 +135,7 @@ class SubtitleRemover:
 
             self._sttn_auto = STTNAutoInpainter(
                 checkpoint_path=self._ckpt("sttn_auto.npz"), config=self.config,
-                device=self.device)
+                device=self.requested_device)
         return self._sttn_auto
 
     @property
@@ -142,7 +145,7 @@ class SubtitleRemover:
 
             self._sttn_det = STTNDetInpainter(
                 checkpoint_path=self._ckpt("sttn_det.npz"), config=self.config,
-                device=self.device)
+                device=self.requested_device)
         return self._sttn_det
 
     @property
