@@ -150,6 +150,24 @@ non-zero and prints no result line):
       <= 1% of values differing (LaMa 5%), the STTN run's kernel launches
       equal to the single device's (16 a window batch, padded windows
       included when the cards do not divide the windows), times of both.
+  (r) training on the card, fp32 with cuDNN's and matmul's TF32 off, data
+      from SEED (uniform frames, the training set's random moving masks,
+      smooth random flows), every module seeded: (r1) STTNTrainer at
+      TrainConfig() defaults (sttn-auto 640x120, channel 256, 8 blocks,
+      batch 8 of 5 frames, discriminator nf 64, hinge; halved on an
+      out-of-memory error), one warm and three timed steps (CUDA events),
+      frames/s (B*L over the step), peak memory, finite losses, the
+      generator moved; then save, restore into a fresh trainer and step
+      both with cudnn.deterministic: losses within RESUME_RTOL; (r2) two
+      steps at channel 64, 2 blocks, nf 16 on the card and on the CPU from
+      one init: losses within TRAIN_CPU_RTOL, the largest parameter
+      difference printed; (r3) FlowCompletionTrainer, two timed steps of 10
+      frames at PP_TRAIN_HW; (r4) PropainterTrainer at full width (channel
+      128, hidden 512, 8 blocks, nf 32) with the LPIPS term on a random
+      vgg16, 10 local + 6 reference frames at PP_TRAIN_HW, two timed steps
+      and peak memory. The token-attention kernel launches 0 times in
+      phase r (trainers use the plain route: the kernel is forward-only),
+      and calling it on inputs that require grad raises (F6).
 
 Phase b also runs the kernel at STTN-det's (9,5) scale (N = 2304, and 1728
 for a short range's chunk; D = 2880) with, besides the two biases above,
@@ -162,6 +180,7 @@ last is a JSON summary of the kernels and of each path; the last line is
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
@@ -2128,6 +2147,252 @@ def phase_q(card, frames, mask):
     return result
 
 
+# ---- phase r: training on the card ----
+
+# r2: the STTN trainer's losses on the card against the CPU, same init and
+# data, fp32 with TF32 off: the repo's bound for fp32 sums in another order
+TRAIN_CPU_RTOL = 1e-4
+# r1: a restored trainer's step against the one that never stopped
+RESUME_RTOL = 1e-6
+# r3 and r4: ProPainter's published training size (configs/train_propainter.json)
+PP_TRAIN_HW = (240, 432)
+
+
+def training_batch(rng, batch, length, h, w):
+    """Frames [B, T, H, W, 3] uniform in [-1, 1] and the training set's
+    random moving masks [B, T, H, W, 1] (train/dataset.py), float32."""
+    from vsr_tpu_torch.train.dataset import create_random_moving_masks
+
+    frames = rng.uniform(-1, 1, (batch, length, h, w, 3)).astype(np.float32)
+    masks = np.stack([create_random_moving_masks(rng, length, h, w) for _ in range(batch)])
+    return frames, masks[..., None].astype(np.float32)
+
+
+def smooth_flows(rng, shape, scale=4.0):
+    """[..., 2, H, W] flow fields: normal noise at 1/8 scale, upsampled."""
+    *lead, c, h, w = shape
+    base = rng.normal(0, scale, (int(np.prod(lead)) * c, 1, -(-h // 8), -(-w // 8)))
+    up = torch.nn.functional.interpolate(torch.from_numpy(base.astype(np.float32)),
+                                         size=(h, w), mode="bilinear", align_corners=False)
+    return up.reshape(shape).numpy()
+
+
+def event_steps(step, batches):
+    """Device time (CUDA events) of step(*batch) for each batch, in ms, and
+    the last step's metrics as floats."""
+    from vsr_tpu_torch.train.sttn_trainer import as_floats
+
+    times, metrics = [], None
+    for batch in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        metrics = as_floats(out)
+    return times, metrics
+
+
+def check_finite(phase, metrics):
+    bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
+    if bad:
+        raise AssertionError(f"[{phase}] metrics not finite: {bad}")
+
+
+def param_copy(module):
+    return {k: v.detach().clone() for k, v in module.named_parameters()}
+
+
+def max_param_diff(a, b):
+    return max(float((a[k].float().cpu() - b[k].float().cpu()).abs().max()) for k in a)
+
+
+def r1_sttn(card, dev, tmp):
+    """The STTN GAN trainer at TrainConfig() defaults, warm step + 3 timed,
+    then save, restore into a fresh trainer and step both."""
+    from vsr_tpu_torch.train.sttn_trainer import STTNTrainer, TrainConfig, as_floats
+
+    cfg = TrainConfig(save_freq=10 ** 9)
+    rng = np.random.default_rng(SEED)
+    batch = cfg.batch_size
+    while True:
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            trainer = STTNTrainer(cfg, device=dev, seed=SEED)
+            data = [tuple(torch.from_numpy(x).to(dev) for x in training_batch(
+                rng, batch, cfg.sample_length, cfg.frame_h, cfg.frame_w)) for _ in range(5)]
+            start = param_copy(trainer.generator)
+            _, warm = event_steps(trainer.step, data[:1])
+            break
+        except torch.cuda.OutOfMemoryError:
+            if batch == 1:
+                raise
+            log(f"[r1] batch {batch} does not fit on {card}; trying {batch // 2}")
+            trainer = data = None
+            batch //= 2
+    check_finite("r1", warm)
+    times, metrics = event_steps(trainer.step, data[1:4])
+    check_finite("r1", metrics)
+    moved = max_param_diff(param_copy(trainer.generator), start)
+    if not moved > 0:
+        raise AssertionError("[r1] the generator's parameters did not move")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = float(np.mean(times)) / 1000
+    frames_s = batch * cfg.sample_length / step_s
+    log(f"[r1] STTN GAN step, batch {batch} x {cfg.sample_length} frames of {cfg.frame_w}x"
+        f"{cfg.frame_h}, channel 256, 8 blocks, discriminator nf 64: step ms "
+        f"{', '.join(f'{t:.1f}' for t in times)} (warm one excluded), {frames_s:.1f} frames/s, "
+        f"peak memory {peak:.2f} GiB on {card}; losses {metrics}; generator moved by up to "
+        f"{moved:.3g}")
+
+    path, saved_at = trainer.save(tmp), trainer.step_count
+    resumed = STTNTrainer(cfg, device=dev, seed=SEED + 7)
+    resumed.restore(path)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cont = as_floats(trainer.step(*data[4]))
+        again = as_floats(resumed.step(*data[4]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    rel = max(abs(cont[k] - again[k]) / max(abs(cont[k]), 1e-12) for k in cont)
+    if rel > RESUME_RTOL:
+        raise AssertionError(f"[r1] restored trainer's step differs by {rel:.3g} relative "
+                             f"(limit {RESUME_RTOL}): {cont} vs {again}")
+    resume_diff = max_param_diff(param_copy(trainer.generator), param_copy(resumed.generator))
+    log(f"[r1] saved at step {saved_at}, restored into a fresh trainer: "
+        f"next step's losses within {rel:.3g} relative of the trainer that never stopped "
+        f"(cudnn.deterministic), generators after it within {resume_diff:.3g}")
+    return {"batch": batch, "sample_length": cfg.sample_length,
+            "frame_wh": [cfg.frame_w, cfg.frame_h], "step_ms": times, "step_s": step_s,
+            "frames_per_s": frames_s, "peak_memory_gib": peak, "losses": metrics,
+            "resume_max_rel": rel, "resume_param_max_diff": resume_diff}
+
+
+def r2_card_vs_cpu(card, dev):
+    """Two STTN trainer steps at channel 64, 2 blocks on the card and on
+    the CPU from the same init and data."""
+    from vsr_tpu_torch.inpaint.weights import init_random_
+    from vsr_tpu_torch.models.discriminator import VideoDiscriminator
+    from vsr_tpu_torch.models.sttn import STTNGenerator
+    from vsr_tpu_torch.train.sttn_trainer import STTNTrainer, TrainConfig, as_floats
+
+    cfg = TrainConfig(batch_size=1, save_freq=10 ** 9)
+    gen = STTNGenerator(variant="auto", channel=64, stack_num=2, use_kernel=False)
+    init_random_(gen, SEED)
+    dis = VideoDiscriminator(nf=16, seed=SEED + 1)
+    init_random_(dis, SEED + 1)
+    rng = np.random.default_rng(SEED + 1)
+    data = [training_batch(rng, 1, cfg.sample_length, cfg.frame_h, cfg.frame_w) for _ in range(2)]
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        g, d = copy.deepcopy(gen), copy.deepcopy(dis)
+        trainer = STTNTrainer(cfg, generator=g, discriminator=d, device=where)
+        t0 = time.perf_counter()
+        losses = [as_floats(trainer.step(*batch)) for batch in data]
+        runs[where.type] = (losses, param_copy(trainer.generator), time.perf_counter() - t0)
+    (card_l, card_p, card_s), (cpu_l, cpu_p, cpu_s) = runs["cuda"], runs["cpu"]
+    rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+              for a, b in zip(card_l, cpu_l) for k in a)
+    if rel > TRAIN_CPU_RTOL:
+        raise AssertionError(f"[r2] card vs CPU losses differ by {rel:.3g} relative "
+                             f"(limit {TRAIN_CPU_RTOL}): {card_l} vs {cpu_l}")
+    pdiff = max_param_diff(card_p, cpu_p)
+    log(f"[r2] STTN trainer, channel 64, 2 blocks, nf 16, 1 x 5 frames of 640x120, 2 steps: "
+        f"card vs CPU losses within {rel:.3g} relative (limit {TRAIN_CPU_RTOL}), largest "
+        f"parameter difference {pdiff:.3g} (Adam with beta1 = 0 moves each by about lr = 1e-4 "
+        f"a step); card {card_s:.2f} s, CPU {cpu_s:.2f} s on {card}")
+    return {"max_rel": rel, "param_max_diff": pdiff, "card_losses": card_l, "cpu_losses": cpu_l}
+
+
+def r3_flow(card, dev):
+    """Two flow-completion steps at 432x240, 10 frames."""
+    from vsr_tpu_torch.train.dataset import create_random_moving_masks
+    from vsr_tpu_torch.train.propainter_trainer import FlowCompletionTrainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(SEED + 2)
+    trainer = FlowCompletionTrainer(device=dev, seed=SEED)
+    h, w = PP_TRAIN_HW
+    data = []
+    for _ in range(3):
+        flows = smooth_flows(rng, (1, 10, 2, h, w))
+        masks = create_random_moving_masks(rng, 10, h, w)[None, :, None].astype(np.float32)
+        data.append((flows, masks))
+    _, warm = event_steps(trainer.train_step, data[:1])
+    times, metrics = event_steps(trainer.train_step, data[1:])
+    check_finite("r3", metrics)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[r3] flow completion + edge head, 1 x 10 frames of {w}x{h}: step ms "
+        f"{', '.join(f'{t:.1f}' for t in times)} (host Canny targets included; warm one "
+        f"excluded), peak memory {peak:.2f} GiB on {card}; losses {metrics}")
+    return {"step_ms": times, "peak_memory_gib": peak, "losses": metrics}
+
+
+def r4_propainter(card, dev):
+    """The ProPainter GAN step at full width with the LPIPS term: 432x240,
+    10 local + 6 reference frames, batch 1."""
+    from vsr_tpu_torch.inpaint.weights import init_random_
+    from vsr_tpu_torch.models.lpips import LPIPS
+    from vsr_tpu_torch.train.propainter_trainer import PropainterTrainConfig, PropainterTrainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lpips = LPIPS()
+    init_random_(lpips, SEED + 3)
+    (h, w), l_t, n_ref = PP_TRAIN_HW, 10, 6
+    trainer = PropainterTrainer(PropainterTrainConfig(perceptual_weight=0.1), l_t,
+                                lpips=lpips, device=dev, seed=SEED)
+    rng = np.random.default_rng(SEED + 3)
+    data = []
+    for _ in range(3):
+        frames, masks = training_batch(rng, 1, l_t + n_ref, h, w)
+        flows_f, flows_b = (smooth_flows(rng, (1, l_t - 1, 2, h, w), 2.0) for _ in range(2))
+        data.append(tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+            np.moveaxis(frames, -1, 2), flows_f, flows_b, np.moveaxis(masks, -1, 2))))
+    _, warm = event_steps(trainer.step, data[:1])
+    times, metrics = event_steps(trainer.step, data[1:])
+    check_finite("r4", metrics)
+    if not metrics["perc_loss"] > 0:
+        raise AssertionError(f"[r4] the LPIPS term is {metrics['perc_loss']}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[r4] ProPainter GAN step, generator channel 128, hidden 512, 8 blocks, "
+        f"discriminator nf 32, LPIPS (random vgg16), 1 x ({l_t} local + {n_ref} reference) "
+        f"frames of {w}x{h}: step ms {', '.join(f'{t:.1f}' for t in times)} (warm one "
+        f"excluded), peak memory {peak:.2f} GiB on {card}; losses {metrics}")
+    return {"step_ms": times, "peak_memory_gib": peak, "losses": metrics}
+
+
+def phase_r(card, tmp):
+    """(see the module docstring)"""
+    from vsr_tpu_torch.ops import token_attention
+
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    token_attention.launches = 0
+    result = {"r1": r1_sttn(card, dev, tmp), "r2": r2_card_vs_cpu(card, dev),
+              "r3": r3_flow(card, dev), "r4": r4_propainter(card, dev)}
+    q = torch.randn((1, 64, 32), device=dev, requires_grad=True)
+    try:
+        token_attention.flash_token_attention(q, q, q)
+    except RuntimeError as e:
+        if "forward-only" not in str(e):
+            raise
+        log(f"[r] the kernel under grad raises: {e}")
+    else:
+        raise AssertionError("[r] the kernel ran on inputs that require grad (F6)")
+    if token_attention.launches != 0:
+        raise AssertionError(f"[r] the training paths launched the token-attention kernel "
+                             f"{token_attention.launches} times")
+    result["launches"] = token_attention.launches
+    return result
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2179,6 +2444,8 @@ def main(argv) -> int:
         done("p")
         mesh = phase_q(card, frames, mask)
         done("q")
+        training = phase_r(card, tmp)
+        done("r")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # one sttn-auto transformer block's two kernel scales, as that path calls them
@@ -2220,6 +2487,7 @@ def main(argv) -> int:
         "bootstrap": bootstrap,
         "gui": gui,
         "mesh": mesh,
+        "training": training,
         "card": card,
     }]}))
     print(json.dumps({"ok": True, "device": {

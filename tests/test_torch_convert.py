@@ -274,7 +274,8 @@ def _reference_files(d):
                  from_flax.raft_state_dict_from_flax),
         "flow-completion": ("recurrent_flow_completion.pth",
                             _tensors(build_flow_completion_state_dict()),
-                            RecurrentFlowCompleteNet, weights.load_flow_completion_weights,
+                            lambda: RecurrentFlowCompleteNet(edge_head=True),
+                            weights.load_flow_completion_weights,
                             torch_loader(jax_pp.convert_flow_completion),
                             from_flax.flow_completion_state_dict_from_flax),
         # full width: the port's encoder scales with ``channel``, the

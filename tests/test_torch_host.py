@@ -471,3 +471,140 @@ def test_common_image_io_and_side_by_side(tmp_path):
     finally:
         for c in caps:
             c.release()
+
+
+# ---- training host modules: dataset, Canny targets, scalars, metrics ----
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_training_masks_bit_identical(seed):
+    """random_shape_mask and create_random_moving_masks draw the same masks
+    from the same generator state (static and moving both occur)."""
+    from vsr_tpu.train import dataset as jax_dataset
+    from vsr_tpu_torch.train import dataset
+
+    h, w = (120, 216) if seed % 2 else (60, 108)
+    got_rng, want_rng = np.random.default_rng(seed), np.random.default_rng(seed)
+    got, want = dataset.random_shape_mask(got_rng, h, w), jax_dataset.random_shape_mask(want_rng, h, w)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    got = dataset.create_random_moving_masks(got_rng, 5, h, w)
+    want = jax_dataset.create_random_moving_masks(want_rng, 5, h, w)
+    np.testing.assert_array_equal(got, want)
+    assert got_rng.random() == want_rng.random()
+
+
+@pytest.mark.parametrize("as_zip", [True, False])
+def test_frame_sequence_dataset_bit_identical(tmp_path, as_zip):
+    """Batches from zip archives and frame directories (a short video
+    padded too), same seed: the same frames and masks."""
+    import os
+    import zipfile
+
+    import cv2
+
+    from vsr_tpu.train.dataset import FrameSequenceDataset as JaxDataset
+    from vsr_tpu_torch.train.dataset import FrameSequenceDataset
+
+    rng = np.random.default_rng(3)
+    root = tmp_path / "videos"
+    root.mkdir()
+    for v, n in enumerate((8, 3)):
+        frames = [rng.integers(0, 256, (48, 64, 3), dtype=np.uint8) for _ in range(n)]
+        if as_zip:
+            with zipfile.ZipFile(root / f"vid{v}.zip", "w") as zf:
+                for i, f in enumerate(frames):
+                    zf.writestr(f"{i:05d}.jpg", cv2.imencode(".jpg", f)[1].tobytes())
+        else:
+            os.makedirs(root / f"vid{v}")
+            for i, f in enumerate(frames):
+                cv2.imwrite(str(root / f"vid{v}" / f"{i:05d}.png"), f)
+    kw = dict(frame_w=40, frame_h=24, sample_length=4, seed=7)
+    got, want = FrameSequenceDataset(str(root), **kw), JaxDataset(str(root), **kw)
+    assert len(got) == len(want) == 2
+    for (gf, gm), (wf, wm) in zip(
+            (next(got.batches(3)) for _ in range(3)), (next(want.batches(3)) for _ in range(3))):
+        assert gf.shape == (3, 4, 24, 40, 3) and gm.shape == (3, 4, 24, 40, 1)
+        np.testing.assert_array_equal(gf, wf)
+        np.testing.assert_array_equal(gm, wm)
+    with pytest.raises(FileNotFoundError):
+        FrameSequenceDataset(str(tmp_path / "none"))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_flow_canny_targets_bit_identical(seed):
+    """flow_edges_host (global max normalisation, Canny with hysteresis) and
+    canny_host without hysteresis, on smooth flows with structure."""
+    import torch
+
+    from vsr_tpu.train import canny as jax_canny
+    from vsr_tpu_torch.train import canny
+
+    rng = np.random.default_rng(seed)
+    base = torch.from_numpy(rng.normal(0, 4, (6, 1, 12, 14)).astype(np.float32))
+    flows = torch.nn.functional.interpolate(base, size=(48, 56), mode="bilinear",
+                                            align_corners=False)
+    flows = np.moveaxis(flows.reshape(1, 3, 2, 48, 56).numpy(), 2, -1)
+    got, want = canny.flow_edges_host(flows), jax_canny.flow_edges_host(flows)
+    assert got.shape == (1, 3, 48, 56, 1) and want.sum() > 0
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(canny.flow_edges_host(flows * 0.01),
+                                  jax_canny.flow_edges_host(flows * 0.01))  # max < 1: no edges
+    img = np.sqrt((flows[0, 0] ** 2).sum(-1)) / 10
+    for a, b in zip(canny.canny_host(img, hysteresis=False),
+                    jax_canny.canny_host(img, hysteresis=False)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_scalar_writer_lines_match(tmp_path, monkeypatch):
+    """The JSONL lines (all but the wall time) of both writers; their
+    tensorboard mirrors are left out (the import loads tensorflow, ~15 s)."""
+    import json
+
+    from vsr_tpu.train import scalars as jax_scalars
+    from vsr_tpu.train.scalars import ScalarWriter as JaxWriter
+    from vsr_tpu_torch.train import scalars
+    from vsr_tpu_torch.train.scalars import ScalarWriter
+
+    for module in (scalars, jax_scalars):
+        monkeypatch.setattr(module, "_tb_writer", lambda log_dir: None)
+
+    lines = []
+    for writer, d in ((ScalarWriter, tmp_path / "port"), (JaxWriter, tmp_path / "jax")):
+        with writer(str(d), interval=100) as w:
+            w.add("loss/gen", 1.5, step=100)
+            w.add("loss/gen", 9.9, step=101)  # off the interval: dropped
+            w.add_dict({"dis": 0.25, "gen": np.float32(2.0)}, step=200)
+        lines.append([{k: v for k, v in json.loads(line).items() if k != "t"}
+                      for line in open(d / "scalars.jsonl")])
+    assert lines[0] == lines[1] and len(lines[0]) == 3
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_metrics_bit_identical(seed):
+    """PSNR, SSIM (window shrinking on small images), flow EPE, the Frechet
+    distance and VFID over a stand-in feature callable."""
+    from vsr_tpu.utils import metrics as jax_metrics
+    from vsr_tpu_torch.utils import metrics
+
+    rng = np.random.default_rng(seed)
+    h, w = (80, 96) if seed else (40, 50)
+    a = rng.integers(0, 256, (h, w, 3), np.uint8)
+    b = np.clip(a.astype(int) + rng.integers(-20, 21, a.shape), 0, 255).astype(np.uint8)
+    assert metrics.psnr(a, b) == jax_metrics.psnr(a, b)
+    assert metrics.psnr(a, a) == jax_metrics.psnr(a, a) == float("inf")
+    assert metrics.ssim(a, b) == jax_metrics.ssim(a, b)
+    assert metrics.ssim(a[..., 0], b[..., 0], win_size=7) == jax_metrics.ssim(
+        a[..., 0], b[..., 0], win_size=7)
+    assert metrics.psnr_and_ssim(a, b) == jax_metrics.psnr_and_ssim(a, b)
+    f1, f2 = rng.normal(0, 2, (2, 4, 6, 7, 2))
+    assert metrics.flow_epe(f1, f2) == jax_metrics.flow_epe(f1, f2)
+    real, fake = rng.normal(0, 1, (60, 8)), rng.normal(0.5, 1.2, (60, 8))
+    assert metrics.frechet_distance(real, fake) == jax_metrics.frechet_distance(real, fake)
+    videos = rng.uniform(-1, 1, (2, 5, 40, 4, 4, 3))
+    proj = rng.normal(0, 1, (48, 8))
+
+    def features(v):  # stand-in for I3D's [N, D] features
+        return v.reshape(-1, 48) @ proj
+
+    assert metrics.vfid(*videos, features) == jax_metrics.vfid(*videos, features)

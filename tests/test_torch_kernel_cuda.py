@@ -8,6 +8,7 @@ with a card and no jax (the repo's conftest imports jax, hence --noconftest):
 Here, without a card, they skip; the wrapper's checks and build logic run.
 """
 
+import copy
 import os
 import time
 
@@ -327,3 +328,56 @@ def test_launch_on_another_card_keeps_current_device(dtype, cuda_device):
     want = ta.token_attention_reference(q, k, v, bias)
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_inputs_that_require_grad(cuda_device):
+    """F6: the kernel is forward-only, so on the card a call on inputs that
+    require grad, with grad mode on, raises before any launch; under
+    no_grad it runs."""
+    q, k, v, _ = (t.to(cuda_device) if t is not None else None for t in _inputs(10, (1, 64, 32)))
+    q.requires_grad_(True)
+    before = ta.launches
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ta.flash_token_attention(q, k, v)
+    assert ta.launches == before
+    with torch.no_grad():
+        got = ta.flash_token_attention(q, k, v)
+    assert ta.launches == before + 1
+    torch.testing.assert_close(got, ta.token_attention_reference(q.detach(), k, v), **F32_TOL)
+
+
+@pytest.mark.cuda
+def test_sttn_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One STTN trainer step (sttn-auto geometry at 640x120, channel 32, one
+    block, discriminator nf 8) from the same init and data on the card and
+    on the CPU, fp32 with TF32 off: every loss within 1e-4 relative; the
+    token-attention kernel is not launched (the trainer's plain route)."""
+    from vsr_tpu_torch.inpaint.weights import init_random_
+    from vsr_tpu_torch.models.discriminator import VideoDiscriminator
+    from vsr_tpu_torch.models.sttn import STTNGenerator
+    from vsr_tpu_torch.train.sttn_trainer import STTNTrainer, TrainConfig, as_floats
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gen = STTNGenerator(variant="auto", channel=32, stack_num=1, use_kernel=False)
+        init_random_(gen, 1)
+        dis = VideoDiscriminator(nf=8, seed=2)
+        init_random_(dis, 2)
+        rng = np.random.default_rng(3)
+        frames = rng.uniform(-1, 1, (1, 2, 120, 640, 3)).astype(np.float32)
+        masks = np.zeros((1, 2, 120, 640, 1), np.float32)
+        masks[:, :, 80:110, 100:540] = 1.0
+        before = ta.launches
+        losses = {}
+        for dev in (cuda_device, torch.device("cpu")):
+            trainer = STTNTrainer(TrainConfig(batch_size=1, sample_length=2),
+                                  generator=copy.deepcopy(gen), discriminator=copy.deepcopy(dis),
+                                  device=dev)
+            losses[dev.type] = as_floats(trainer.step(frames, masks))
+        assert ta.launches == before
+        for k, want in losses["cpu"].items():
+            assert losses["cuda"][k] == pytest.approx(want, rel=1e-4), k
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

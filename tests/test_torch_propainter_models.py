@@ -321,8 +321,8 @@ def _flax_init(name):
 @pytest.mark.parametrize("name,convert,make,scan_key", [
     ("raft", raft_state_dict_from_flax, lambda: RAFT(**RAFT_KW),
      "step.update.gru.convz1.weight"),
-    ("flow_completion", flow_completion_state_dict_from_flax, RecurrentFlowCompleteNet,
-     "prop.forward_sweep.align.weight"),
+    ("flow_completion", flow_completion_state_dict_from_flax,
+     lambda: RecurrentFlowCompleteNet(edge_head=True), "prop.forward_sweep.align.weight"),
     ("propainter", propainter_state_dict_from_flax, lambda: ProPainterGenerator(**TINY_GEN),
      "feat_prop_module.backward_sweep.align.off3.weight"),
 ], ids=["raft", "flow_completion", "propainter"])

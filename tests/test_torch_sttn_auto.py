@@ -209,7 +209,14 @@ def test_port_never_imports_jax():
         "        'vsr_tpu_torch.utils.process_manager', 'vsr_tpu_torch.utils.tracing',\n"
         "        'vsr_tpu_torch.gui', 'vsr_tpu_torch.gui.__main__', 'vsr_tpu_torch.gui.manager',\n"
         "        'vsr_tpu_torch.gui.selection_model', 'vsr_tpu_torch.gui.server',\n"
-        "        'vsr_tpu_torch.parallel', 'vsr_tpu_torch.parallel.mesh'} <= set(names)\n"
+        "        'vsr_tpu_torch.parallel', 'vsr_tpu_torch.parallel.mesh',\n"
+        "        'vsr_tpu_torch.models.discriminator', 'vsr_tpu_torch.models.vgg',\n"
+        "        'vsr_tpu_torch.models.lpips', 'vsr_tpu_torch.utils.metrics', 'vsr_tpu_torch.train',\n"
+        "        'vsr_tpu_torch.train.losses', 'vsr_tpu_torch.train.lr_schedulers',\n"
+        "        'vsr_tpu_torch.train.scalars', 'vsr_tpu_torch.train.dataset',\n"
+        "        'vsr_tpu_torch.train.canny', 'vsr_tpu_torch.train.perceptual',\n"
+        "        'vsr_tpu_torch.train.sttn_trainer', 'vsr_tpu_torch.train.train_sttn',\n"
+        "        'vsr_tpu_torch.train.propainter_trainer'} <= set(names)\n"
         "assert 'vsr_tpu_torch.convert.__main__' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'vsr_tpu'))\n"
         "print(len(names), bad)\n"

@@ -2,8 +2,9 @@
 
 STTN: inverts the key map of ``convert/torch_sttn.py`` (the port's copy of
 the JAX package's converter) and transposes conv kernels HWIO -> OIHW.
-DBNet, LaMa and ProPainter's three networks: the port's modules carry the
-flax module names, so the map is structural (see _structural_state_dict).
+DBNet, LaMa, ProPainter's three networks, and the training networks (the
+video discriminator, VGG, LPIPS): the port's modules carry the flax module
+names, so the map is structural (see _structural_state_dict).
 Reference checkpoints reach these maps through the converters beside this
 module, which write the JAX package's variable tree.
 """
@@ -11,7 +12,7 @@ module, which write the JAX package's variable tree.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -174,7 +175,7 @@ _RAFT_MODULE = re.compile(
     r"|step/update/(encoder/conv(c1|c2|f1|f2)?|gru/conv[zrq][12]|flow[12]|mask[12])")
 _FLOW_MODULE = re.compile(
     r"down|enc[12][ab]/conv[12]|mid[0-2]|prop/fusion|(dec2a|dec2b|dec1a|dec1b|upa|upb)/conv"
-    r"|prop/(backward|forward)/(align(/off[0-3]/conv)?|bb[12]/conv)")
+    r"|prop/(backward|forward)/(align(/off[0-3]/conv)?|bb[12]/conv)|edge/((proj|mid[12])/conv|out)")
 _PROPAINTER_MODULE = re.compile(
     r"encoder/c[0-8]|ss/embedding|sc/(embedding|bias_conv)|dec_(deconv0|conv1|deconv1|conv2)"
     r"|feat_prop_module/((backward|forward)/(align(/off[0-3])?|bb[01])|fuse[01])"
@@ -193,10 +194,11 @@ def raft_state_dict_from_flax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor
 def flow_completion_state_dict_from_flax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax RecurrentFlowCompleteNet params -> the port's state dict. Conv3d
     kernels DHWIO -> OIDHW; each sweep's alignment kernel and bias sit on
-    ``prop/<sweep>/align`` itself. The training-only edge head (``edge/``)
-    is dropped. Another unknown module or leaf raises."""
-    return _checked_state_dict(flat, _FLOW_MODULE, "flow completion",
-                               skip=lambda module: module.startswith("edge/"))
+    ``prop/<sweep>/align`` itself. The training-only edge head (``edge/``,
+    in a flax init with ``train=True`` and in every reference checkpoint)
+    maps to ``edge.*`` when the tree has it: it loads into a net built with
+    ``edge_head=True``. An unknown module or leaf raises."""
+    return _checked_state_dict(flat, _FLOW_MODULE, "flow completion")
 
 
 def propainter_state_dict_from_flax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -206,3 +208,50 @@ def propainter_state_dict_from_flax(flat: Mapping[str, Any]) -> Dict[str, torch.
     feature-propagation sweeps' params, one copy each under their scan's
     name. An unknown module or leaf raises."""
     return _checked_state_dict(flat, _PROPAINTER_MODULE, "ProPainter")
+
+
+_VGG_MODULE = re.compile(r"conv[1-5]_[1-4]")
+_LPIPS_MODULE = re.compile(r"net/conv[1-5]_[1-3]|lin[0-4]")
+_DIS_PARAM = re.compile(r"conv[0-5]")
+_DIS_STAT = re.compile(r"SpectralNorm_(\d)/conv(\d)/kernel/(u|sigma)")
+
+
+def _params(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A params tree with or without its top-level 'params', flattened and
+    put under 'params/'."""
+    flat = _flatten(tree)
+    return {k if k.startswith("params/") else f"params/{k}": v for k, v in flat.items()}
+
+
+def vgg_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax VGGFeatures params (with or without the top-level 'params') ->
+    the port's VGGFeatures state dict (``conv3_2.weight``, OIHW)."""
+    return _checked_state_dict(_params(params), _VGG_MODULE, "VGG")
+
+
+def lpips_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax LPIPS params -> the port's LPIPS state dict: the vgg16 trunk
+    under ``net.`` and the bias-free 1x1 heads ``lin0``..``lin4``."""
+    return _checked_state_dict(_params(params), _LPIPS_MODULE, "LPIPS")
+
+
+def discriminator_state_dict_from_flax(params: Mapping[str, Any],
+                                       batch_stats: Optional[Mapping[str, Any]] = None
+                                       ) -> Dict[str, torch.Tensor]:
+    """Flax VideoDiscriminator variables -> the port's state dict.
+
+    params: ``conv{i}/kernel`` (DHWIO -> OIDHW; conv0..conv4 without bias
+    under spectral norm) and ``conv5/{kernel,bias}``, with or without the
+    top-level 'params'. batch_stats: the spectral norms' power-iteration
+    state, ``SpectralNorm_{i}/conv{i}/kernel/{u,sigma}`` -> ``conv{i}.u``
+    [1, Cout] and ``conv{i}.sigma`` (with or without a top-level
+    'batch_stats'). An unknown module or leaf raises."""
+    state = _checked_state_dict(_params(params), _DIS_PARAM, "discriminator")
+    for path, value in _flatten(batch_stats or {}).items():
+        path = path[len("batch_stats/"):] if path.startswith("batch_stats/") else path
+        m = _DIS_STAT.fullmatch(path)
+        if not m or m.group(1) != m.group(2):
+            raise KeyError(f"unrecognized discriminator statistic: {path}")
+        state[f"conv{m.group(2)}.{m.group(3)}"] = torch.from_numpy(
+            np.array(value, dtype=np.float32))
+    return state

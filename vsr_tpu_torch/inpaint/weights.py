@@ -140,8 +140,17 @@ def load_flow_completion_weights(model: nn.Module, checkpoint_path: Optional[str
     """Fill a RecurrentFlowCompleteNet in place from flow_completion.npz
     (flow_completion_state_dict_from_flax) or a reference
     recurrent_flow_completion.pth (convert/torch_propainter.py); as
-    load_raft_weights otherwise."""
-    _load_or_init(model, checkpoint_path, seed, flow_completion_state_dict_from_flax,
+    load_raft_weights otherwise. A checkpoint's training-only edge head
+    loads into a net built with it; a net without one (inference never
+    calls it) leaves it out. Every tensor the net has is loaded strictly."""
+
+    def from_flax(flat):
+        state = flow_completion_state_dict_from_flax(flat)
+        if model.edge is None:
+            state = {k: v for k, v in state.items() if not k.startswith("edge.")}
+        return state
+
+    _load_or_init(model, checkpoint_path, seed, from_flax,
                   functools.partial(load_reference, "flow-completion"))
 
 

@@ -10,7 +10,8 @@ flow. The propagation sweeps are Python loops over time. Modules carry the
 flax names (``enc1a.conv2``, ``prop.fusion``; flax's ``prop/backward`` is
 ``prop.backward_sweep``), so the JAX package's variables load through
 ``convert.from_flax.flow_completion_state_dict_from_flax``. The
-training-only edge head is not built; the converter drops its params.
+training-only edge head (``EdgeDetector``, flax's ``edge``) is built with
+``edge_head=True``; inference builds none and never calls it.
 
 Video tensors are [B, T, C, H, W] (per-frame NCHW); the Conv3d layers see
 [B, C, T, H, W]. The network computes in the dtype of its parameters and
@@ -151,8 +152,26 @@ class _P3DBlock(nn.Module):
         return self.conv2(_lrelu(self.conv1(x)))
 
 
+class EdgeDetector(nn.Module):
+    """The flow-completion edge head (recurrent_flow_completion.py:176-204),
+    trained against Canny edges of the flow: [N, 2, H, W] flow -> [N, 1, H,
+    W] edge probability."""
+
+    def __init__(self, mid: int = 16):
+        super().__init__()
+        self.proj = _Conv2d(2, mid)
+        self.mid1 = _Conv2d(mid, mid)
+        self.mid2 = _Conv2d(mid, mid)
+        self.out = nn.Conv2d(mid, 1, 1)
+
+    def forward(self, flow: torch.Tensor) -> torch.Tensor:
+        x = _lrelu(self.proj(flow))
+        e = self.mid2(_lrelu(self.mid1(x)))
+        return torch.sigmoid(self.out(F.leaky_relu(x + e, 0.01)))
+
+
 class RecurrentFlowCompleteNet(nn.Module):
-    def __init__(self):
+    def __init__(self, edge_head: bool = False):
         super().__init__()
         self.down = nn.Conv3d(3, 32, (1, 5, 5), stride=(1, 2, 2))
         self.enc1a = _P3DBlock(32, 32, 1)
@@ -169,10 +188,12 @@ class RecurrentFlowCompleteNet(nn.Module):
         self.dec1b = _Deconv(64, 32)
         self.upa = _Conv2d(32, 32)
         self.upb = _Deconv(32, 2)
+        self.edge = EdgeDetector() if edge_head else None
 
-    def forward(self, masked_flows: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    def forward(self, masked_flows: torch.Tensor, masks: torch.Tensor, train: bool = False):
         """masked_flows [B, T, 2, H, W]; masks [B, T, 1, H, W] -> completed
-        flows [B, T, 2, H, W] fp32."""
+        flows [B, T, 2, H, W] fp32; with ``train``, also the edge head's
+        [B*T, 1, H, W] edges (fp32) of those flows."""
         B, T, _, H, W = masked_flows.shape
         dtype = self.down.weight.dtype
         x = torch.cat([masked_flows, masks], dim=2).to(dtype).transpose(1, 2)  # [B, 3, T, H, W]
@@ -192,7 +213,13 @@ class RecurrentFlowCompleteNet(nn.Module):
         d2 = _lrelu(self.dec2b(d2)) + flat(e1.transpose(1, 2))  # 4x
         d1 = _lrelu(self.dec1b(_lrelu(self.dec1a(d2))))  # 2x
         flow = self.upb(_lrelu(self.upa(d1)))
-        return flow.reshape(B, T, 2, H, W).float()
+        flow = flow.reshape(B, T, 2, H, W).float()
+        if train:
+            if self.edge is None:
+                raise ValueError("train=True needs the edge head: "
+                                 "RecurrentFlowCompleteNet(edge_head=True)")
+            return flow, self.edge(flow.reshape(B * T, 2, H, W).to(dtype)).float()
+        return flow
 
     def forward_bidirect_flow(self, masked_flows_bi: Tuple[torch.Tensor, torch.Tensor],
                               masks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

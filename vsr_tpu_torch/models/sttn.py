@@ -187,3 +187,20 @@ class STTNGenerator(nn.Module):
         """[N, h, w, C] -> [N, H, W, 3] in [-1, 1]."""
         x = feats.to(self.dtype).permute(0, 3, 1, 2)
         return self.decoder(x).permute(0, 2, 3, 1)
+
+    def forward(self, masked_frames: torch.Tensor,
+                masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The training forward over whole clips (vsr_tpu/models/sttn.py:
+        215-236): encode, transform, decode, all frames attending to all.
+        masked_frames [B, T, H, W, 3] in [-1, 1]; masks [B, T, H, W, 1] in
+        {0, 1}, the det variant's attention mask at 1/4 scale (nearest,
+        ``masks[:, :, ::4, ::4, 0]``) -> [B, T, H, W, 3]."""
+        B, T, H, W, _ = masked_frames.shape
+        x = masked_frames.reshape(B * T, H, W, 3).to(self.dtype).permute(0, 3, 1, 2)
+        x = self.encoder(x)
+        patch_mask = None
+        if masks is not None and self.variant == "det" and self.apply_attention_mask:
+            patch_mask = masks[:, :, ::4, ::4, 0]
+        for block in self.transformer:
+            x = block(x, B, T, None, patch_mask)
+        return self.decoder(x).permute(0, 2, 3, 1).reshape(B, T, H, W, 3)

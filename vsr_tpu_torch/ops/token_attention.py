@@ -78,6 +78,17 @@ def _check(q, k, v, key_bias) -> None:
                              f"{(B, k.shape[1])}, got {tuple(key_bias.shape)}")
 
 
+def _forward_only(q, k, v) -> None:
+    """The CUDA kernel has no backward: its output carries no autograd
+    graph, so a caller that needs gradients through attention would lose
+    them without a word. Raise instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "the token-attention CUDA kernel is forward-only and q, k or v requires grad: "
+            "run under torch.no_grad() / torch.inference_mode(), or build the model with "
+            "use_kernel=False for training")
+
+
 def _aligned(t: torch.Tensor, D_pad: int) -> torch.Tensor:
     """t itself when the kernel's tensor maps can read it (D == D_pad and a
     16-byte aligned base), else a fresh copy zero-padded to D_pad columns."""
@@ -167,13 +178,15 @@ def flash_token_attention(
     key_bias: optional contiguous float32 [B, Nk]. Returns [B, Nq, D] in
     q.dtype. A CUDA tensor runs the CUDA kernels (or raises); a CPU tensor
     runs token_attention_reference. One call counts one launch, whatever
-    number of CUDA kernels it runs.
+    number of CUDA kernels it runs. The kernels are forward-only: on CUDA,
+    q, k or v requiring grad with grad mode on raises (_forward_only).
     """
     if q.device.type == "cpu":
         return token_attention_reference(q, k, v, key_bias)
     if q.device.type != "cuda":
         raise ValueError(f"no token-attention kernel for device {q.device}")
     _check(q, k, v, key_bias)
+    _forward_only(q, k, v)
     from vsr_tpu_torch.ops._build import get_lib
 
     lib = get_lib()
