@@ -168,6 +168,31 @@ non-zero and prints no result line):
       and peak memory. The token-attention kernel launches 0 times in
       phase r (trainers use the plain route: the kernel is forward-only),
       and calling it on inputs that require grad raises (F6).
+  (s) training across processes, I3D and VFID, the flow losses (fp32,
+      TF32 off): one process first runs each check's reference on the card,
+      then two ranks spawned on cuda:0 join a gloo world through
+      init_distributed ("cuda:0", torchrun's variables set) and run (s1)
+      STTNTrainer at TrainConfig() defaults over a data group of 2 (the
+      global batch 8 of 5 frames, 4 a rank; the same seeded batches with
+      the training set's moving masks, every sample its own; a warm and two
+      timed steps, each restored to the one process's state before it),
+      (s2) one full-width STTN step over data 1 x model 2 at global batch
+      TP_BATCH (the generator's convolutions split over the model group;
+      at least one must be), and (s3) one FlowCompletionTrainer
+      and one PropainterTrainer step (full width, global batch 2 at
+      PP_TRAIN_HW); every rank's losses within TRAIN_CPU_RTOL of one
+      process's, the largest parameter difference, step times (host clock
+      around a synchronised step) and each rank's peak memory printed; with
+      two or more cards s1 again over NCCL, one rank a card; then `torchrun
+      --nproc_per_node=1 -m vsr_tpu_torch.train.train_sttn --distributed
+      --steps 2` on two synthetic frame directories (NCCL, rc 0 and
+      ckpt_2.pt written); (s4) a full-width random i3d_rgb_imagenet.pt
+      through `python -m vsr_tpu_torch.convert i3d` and from_flax, loaded
+      strict (equal to the .pt loaded strict), features of I3D_CLIPS clips
+      of 16x224x224 on the card against the CPU (max |err| <= I3D_CPU_TOL),
+      the VFID of VFID_CLIPS clips against noisy copies and clips/s; (s5)
+      the four flow losses on the card against the CPU. The token-attention
+      kernel launches 0 times in phase s, in this process and in every rank.
 
 Phase b also runs the kernel at STTN-det's (9,5) scale (N = 2304, and 1728
 for a short range's chunk; D = 2880) with, besides the two biases above,
@@ -1593,13 +1618,38 @@ def _lama_spec(ngf=64, n_down=3, n_blocks=18, ratio=0.75):
     return spec
 
 
+def _i3d_spec(num_classes=400):
+    """i3d_rgb_imagenet.pt, the VFID metric's InceptionI3d(400): a bias-free
+    Conv3d and a BatchNorm3d per unit, a 1x1x1 logits conv with bias."""
+    from vsr_tpu_torch.models.i3d import MIXED
+
+    spec = {}
+
+    def unit(name, cin, cout, k):
+        spec[f"{name}.conv3d.weight"] = (cout, cin, k, k, k)
+        _bn_spec(spec, f"{name}.bn", cout)
+
+    unit("Conv3d_1a_7x7", 3, 64, 7)
+    unit("Conv3d_2b_1x1", 64, 64, 1)
+    unit("Conv3d_2c_3x3", 64, 192, 3)
+    cin = 192
+    for name, (b0, b1a, b1b, b2a, b2b, b3) in MIXED.items():
+        for branch, i, o, k in (("b0", cin, b0, 1), ("b1a", cin, b1a, 1), ("b1b", b1a, b1b, 3),
+                                ("b2a", cin, b2a, 1), ("b2b", b2a, b2b, 3), ("b3b", cin, b3, 1)):
+            unit(f"{name}.{branch}", i, o, k)
+        cin = b0 + b1b + b2b + b3
+    spec["logits.conv3d.weight"] = (num_classes, cin, 1, 1, 1)
+    spec["logits.conv3d.bias"] = (num_classes,)
+    return spec
+
+
 def reference_specs():
     """family -> {key: shape} of each reference checkpoint at full width, in
     the reference's key layout (tests/test_torch_convert.py holds these
     against the state dicts the converter tests build)."""
     return {"sttn": _sttn_spec(), "raft": _raft_spec(),
             "flow_completion": _flow_completion_spec(), "propainter": _propainter_spec(),
-            "lama": _lama_spec()}
+            "lama": _lama_spec(), "i3d": _i3d_spec()}
 
 
 def random_state_dict(spec, seed):
@@ -2393,6 +2443,411 @@ def phase_r(card, tmp):
     return result
 
 
+
+# ---- phase s: training across processes, I3D and VFID, the flow losses ----
+
+# s1: TrainConfig()'s global batch of 8 over two ranks on one card (gloo)
+DIST_RANKS = 2
+# s2: data 1 x model 2 on one card. Each model rank holds the whole batch's
+# activations and gathers every split conv's output (and sums its input's
+# gradient) through gloo, on the host: 20.2 s a step at batch 2 on an H100
+# (PERF.md), so the check takes one sample
+TP_BATCH = 1
+# s4: the VFID metric's I3D at its clip size, 16 frames of 224x224; card fp32
+# (TF32 off) against the CPU: the repo's activation-parity bound (ROADMAP.md)
+I3D_CLIPS, I3D_FRAMES, I3D_HW = 4, 16, 224
+I3D_CPU_TOL = 1e-3
+VFID_CLIPS = 8
+RANKS_TIMEOUT_S = 400
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_main(rank, world, port, fn, args):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch.distributed as dist
+
+    try:
+        fn(rank, *args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ranks(world, fn, *args):
+    """fn(rank, *args) in ``world`` spawned processes with torchrun's
+    environment; raises with a rank's traceback if one fails, and kills
+    them all after RANKS_TIMEOUT_S."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(_rank_main, args=(world, _free_port(), fn, args), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + RANKS_TIMEOUT_S
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"[s] {world} ranks of {fn.__name__} did not finish in "
+                                 f"{RANKS_TIMEOUT_S} s")
+
+
+def synced_ms(dev, fn):
+    """fn() and its wall time in ms, the device synchronised on both sides
+    (a step with collectives waits on the host between its kernels)."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def host_state(module):
+    """A module's state dict on the host (a collective under tensor
+    parallelism: every rank of the model group calls it)."""
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
+def s_sttn(dev, mesh, batch, steps, states=None):
+    """STTNTrainer at TrainConfig() widths, global batch ``batch``, seeded
+    from SEED, ``steps`` steps on the same seeded global batches
+    (uniform frames, the training set's moving masks: every sample its
+    own). With ``states`` (a directory), one process saves its state after
+    every step but the last there, and a mesh run restores it before every
+    step but the first, so each step of both starts from the same state.
+    Compared free-running, two steps of Adam (beta1 0, eps 1e-8) turn the
+    rounding of gradients near eps into parameter differences of about lr,
+    between two one-process runs on one card too (PERF.md)."""
+    from vsr_tpu_torch.train.sttn_trainer import STTNTrainer, TrainConfig, as_floats
+
+    torch.cuda.empty_cache()
+    torch.zeros(1, device=dev)  # the allocator's stats exist once it has allocated
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = TrainConfig(batch_size=batch, save_freq=10 ** 9)
+    rng = np.random.default_rng(SEED + 10)
+    data = [training_batch(rng, batch, cfg.sample_length, cfg.frame_h, cfg.frame_w)
+            for _ in range(steps)]
+    trainer = STTNTrainer(cfg, device=dev, seed=SEED, mesh=mesh)
+    losses, times = [], []
+    for i, (frames, masks) in enumerate(data):
+        if states and mesh is not None and i > 0:
+            trainer.restore(os.path.join(states, f"ckpt_{i}.pt"))
+        out, ms = synced_ms(dev, lambda: trainer.step(frames, masks))
+        losses.append(as_floats(out))
+        times.append(ms)
+        if states and mesh is None and i < steps - 1:
+            trainer.save(states)
+    return {"losses": losses, "step_ms": times, "params": host_state(trainer.generator),
+            "sharded": trainer.sharded, "peak_memory_gib":
+            torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+
+
+def s_flow(dev, mesh):
+    """One FlowCompletionTrainer step, global batch 2 of 10 frames at PP_TRAIN_HW."""
+    from vsr_tpu_torch.train.dataset import create_random_moving_masks
+    from vsr_tpu_torch.train.propainter_trainer import FlowCompletionTrainer
+    from vsr_tpu_torch.train.sttn_trainer import as_floats
+
+    torch.cuda.empty_cache()
+    h, w = PP_TRAIN_HW
+    rng = np.random.default_rng(SEED + 11)
+    flows = smooth_flows(rng, (2, 10, 2, h, w))
+    masks = np.stack([create_random_moving_masks(rng, 10, h, w) for _ in range(2)])
+    trainer = FlowCompletionTrainer(device=dev, seed=SEED, mesh=mesh)
+    out, ms = synced_ms(dev, lambda: trainer.train_step(flows, masks[:, :, None].astype(np.float32)))
+    return {"losses": [as_floats(out)], "step_ms": [ms], "params": host_state(trainer.net)}
+
+
+def s_propainter(dev, mesh):
+    """One PropainterTrainer step at full width, global batch 2 of 10 local
+    + 6 reference frames at PP_TRAIN_HW (no LPIPS term: r4 has it)."""
+    from vsr_tpu_torch.train.propainter_trainer import PropainterTrainer
+    from vsr_tpu_torch.train.sttn_trainer import as_floats
+
+    torch.cuda.empty_cache()
+    (h, w), l_t = PP_TRAIN_HW, 10
+    rng = np.random.default_rng(SEED + 12)
+    frames, masks = training_batch(rng, 2, l_t + 6, h, w)
+    flows_f, flows_b = (smooth_flows(rng, (2, l_t - 1, 2, h, w), 2.0) for _ in range(2))
+    batch = (np.moveaxis(frames, -1, 2), flows_f, flows_b, np.moveaxis(masks, -1, 2))
+    trainer = PropainterTrainer(num_local_frames=l_t, device=dev, seed=SEED, mesh=mesh)
+    out, ms = synced_ms(dev, lambda: trainer.step(*batch))
+    return {"losses": [as_floats(out)], "step_ms": [ms], "params": host_state(trainer.generator)}
+
+
+def s_rank(rank, out_dir, shared, states):
+    """One rank of phase s: s1 (data 2, or one rank per card over NCCL when
+    not ``shared``; each step from the one process's state in ``states``),
+    then on the shared card s2 (data 1 x model 2) and s3; its results go to
+    ``out_dir/rank<r>.pt`` (the parameters from rank 0)."""
+    import torch.distributed as dist
+
+    from vsr_tpu_torch.ops import token_attention
+    from vsr_tpu_torch.parallel.distributed import TrainingMesh, init_distributed
+    from vsr_tpu_torch.train.sttn_trainer import TrainConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = init_distributed("cuda:0" if shared else "cuda")
+    data = TrainingMesh()
+    result = {"backend": dist.get_backend(), "device": str(dev),
+              "s1": s_sttn(dev, data, TrainConfig().batch_size, 3, states)}
+    if shared:
+        result["s2"] = s_sttn(dev, TrainingMesh(data=1, model=2), TP_BATCH, 1)
+        result["s3_flow"] = s_flow(dev, data)
+        result["s3_propainter"] = s_propainter(dev, data)
+    result["launches"] = token_attention.launches
+    if rank != 0:
+        for job in result.values():
+            if isinstance(job, dict):
+                job.pop("params", None)
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def compare_job(ranks, ref):
+    """The largest relative difference of any rank's losses from the
+    one-process run's at each step, and the largest parameter difference of
+    rank 0's network after the last step."""
+    rels = [max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+                for rank in ranks for got in [rank["losses"][i]] for k in want)
+            for i, want in enumerate(ref["losses"])]
+    return rels, max_param_diff(ranks[0]["params"], ref["params"])
+
+
+def s_torchrun(tmp):
+    """``torchrun --nproc_per_node=1 -m vsr_tpu_torch.train.train_sttn
+    --distributed --steps 2`` on two synthetic frame directories, at
+    TrainConfig()'s widths and batch, one rank on cuda:0 over NCCL."""
+    import cv2
+
+    data, save = os.path.join(tmp, "train_frames"), os.path.join(tmp, "train_ckpt")
+    rng = np.random.default_rng(SEED + 15)
+    for v in range(2):
+        os.makedirs(os.path.join(data, f"video{v}"))
+        for i in range(8):
+            cv2.imwrite(os.path.join(data, f"video{v}", f"{i:05d}.jpg"),
+                        rng.integers(0, 256, (120, 640, 3), dtype=np.uint8))
+    config = os.path.join(tmp, "train_config.json")
+    with open(config, "w") as f:
+        json.dump({"save_freq": 1000, "log_freq": 1}, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+           "-m", "vsr_tpu_torch.train.train_sttn", "--distributed", "--data", data,
+           "--config", config, "--steps", "2", "--save-dir", save]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[s]   {line}")
+    ckpt = os.path.join(save, "ckpt_2.pt")
+    if proc.returncode != 0 or not os.path.exists(ckpt):
+        raise AssertionError(f"[s] torchrun train_sttn --distributed: exit {proc.returncode}, "
+                             f"checkpoint {'written' if os.path.exists(ckpt) else 'missing'}\n"
+                             f"{proc.stderr[-4000:]}")
+    step = torch.load(ckpt, map_location="cpu", weights_only=True)["step"]
+    if step != 2:
+        raise AssertionError(f"[s] the torchrun checkpoint is at step {step}, not 2")
+    log(f"[s] torchrun --nproc_per_node=1 train_sttn --distributed --steps 2 (NCCL, batch 8 x 5 "
+        f"frames of 640x120, full width): rc 0, {os.path.basename(ckpt)} written, "
+        f"{seconds:.1f} s wall (start-up and two steps)")
+    return {"rc": proc.returncode, "checkpoint_step": step, "wall_s": seconds}
+
+
+def s_i3d(card, dev, tmp):
+    """The I3D from a full-width reference-format i3d_rgb_imagenet.pt through
+    ``python -m vsr_tpu_torch.convert i3d`` and from_flax, loaded strict;
+    features of I3D_CLIPS clips on the card against the CPU; VFID of two
+    sets of VFID_CLIPS clips; clips/s."""
+    from vsr_tpu_torch.convert.from_flax import i3d_state_dict_from_flax
+    from vsr_tpu_torch.convert.params_io import load_params
+    from vsr_tpu_torch.models.i3d import InceptionI3d
+    from vsr_tpu_torch.utils.metrics import vfid
+
+    torch.cuda.empty_cache()
+    pt, npz = os.path.join(tmp, "i3d_rgb_imagenet.pt"), os.path.join(tmp, "i3d.npz")
+    sd = random_state_dict(_i3d_spec(), SEED + 6)
+    torch.save(sd, pt)
+    proc = subprocess.run([sys.executable, "-m", "vsr_tpu_torch.convert", "i3d", pt, "-o", npz],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"[s] vsr_tpu_torch.convert i3d: exit {proc.returncode}\n"
+                             f"{proc.stderr[-4000:]}")
+    model = InceptionI3d().eval()
+    model.load_state_dict(i3d_state_dict_from_flax(load_params(npz)), strict=True)
+    direct = InceptionI3d()
+    direct.load_state_dict(sd, strict=True)
+    same_state(model, direct, "I3D (the converter's .npz against the .pt loaded strict)")
+    rng = np.random.default_rng(SEED + 13)
+    clips = rng.uniform(-1, 1, (I3D_CLIPS, I3D_FRAMES, I3D_HW, I3D_HW, 3)).astype(np.float32)
+    with torch.no_grad():
+        cpu = model(torch.from_numpy(clips))
+        model.to(dev)
+        card_out = model(torch.from_numpy(clips).to(dev)).cpu()
+    err = float((card_out - cpu).abs().max())
+    if not err <= I3D_CPU_TOL:
+        raise AssertionError(f"[s] I3D features card vs CPU max |err| {err:.3g} "
+                             f"(limit {I3D_CPU_TOL})")
+    real = rng.uniform(-1, 1, (VFID_CLIPS, I3D_FRAMES, I3D_HW, I3D_HW, 3)).astype(np.float32)
+    fake = np.clip(real + rng.normal(0, 0.3, real.shape), -1, 1).astype(np.float32)
+
+    @torch.no_grad()
+    def features(videos):
+        return model(torch.from_numpy(videos).to(dev)).cpu()
+
+    features(real)  # warm
+    _, ms = synced_ms(dev, lambda: features(real))
+    t0 = time.perf_counter()
+    value = vfid(real, fake, features)
+    vfid_s = time.perf_counter() - t0
+    if not np.isfinite(value) or value <= 0:
+        raise AssertionError(f"[s] VFID of noisy clips against their originals is {value}")
+    clips_s = VFID_CLIPS / (ms / 1e3)
+    log(f"[s4] I3D (random reference-format weights, converted through the CLI, loaded "
+        f"strict): features of {I3D_CLIPS} clips of {I3D_FRAMES}x{I3D_HW}x{I3D_HW}, card fp32 "
+        f"(TF32 off) vs CPU max |err| {err:.3g} (limit {I3D_CPU_TOL}), |features| up to "
+        f"{float(cpu.abs().max()):.3g}; a batch of {VFID_CLIPS} clips {ms:.1f} ms with its "
+        f"copies ({clips_s:.1f} clips/s) on {card}; VFID of {VFID_CLIPS} clips against noisy "
+        f"copies {value:.4g} ({vfid_s:.2f} s with both sets' features and the host sqrtm)")
+    return {"card_vs_cpu": err, "batch_ms": ms, "clips_per_s": clips_s, "vfid": value,
+            "vfid_s": vfid_s}
+
+
+def s_flow_losses(dev):
+    """The four flow losses on the card (fp32, TF32 off) against the CPU, on
+    two 432x240 samples: within TRAIN_CPU_RTOL relative."""
+    from vsr_tpu_torch.train import flow_losses as fl
+
+    h, w = PP_TRAIN_HW
+    rng = np.random.default_rng(SEED + 14)
+    flow = np.ascontiguousarray(np.moveaxis(smooth_flows(rng, (2, 2, h, w)), 1, -1))
+    mask = (rng.uniform(size=(2, h, w, 1)) > 0.3).astype(np.float32)
+    f1, f2 = (rng.uniform(0, 1, (2, h, w, 3)).astype(np.float32) for _ in range(2))
+    cases = {"smoothness": (fl.smoothness_loss, (flow, mask)),
+             "second_order_smoothness": (fl.second_order_smoothness_loss, (flow, mask)),
+             "ternary": (fl.ternary_loss, (f1, f2, mask)),
+             "flow_warp": (fl.flow_warp_loss, (f1, f2, flow, mask))}
+    out = {}
+    for name, (fn, args) in cases.items():
+        cpu = float(fn(*map(torch.from_numpy, args)))
+        card_value = float(fn(*(torch.from_numpy(a).to(dev) for a in args)))
+        rel = abs(card_value - cpu) / max(abs(cpu), 1e-12)
+        if not rel <= TRAIN_CPU_RTOL:
+            raise AssertionError(f"[s5] {name}: card {card_value} vs CPU {cpu} ({rel:.3g} "
+                                 f"relative, limit {TRAIN_CPU_RTOL})")
+        out[name] = {"card": card_value, "cpu": cpu, "rel": rel}
+    log(f"[s5] flow losses, 2 x {w}x{h}, card vs CPU: " + ", ".join(
+        f"{k} {v['card']:.6g} ({v['rel']:.2g} rel)" for k, v in out.items()))
+    return out
+
+
+def phase_s(card, tmp):
+    """(see the module docstring)"""
+    from vsr_tpu_torch.ops import token_attention
+    from vsr_tpu_torch.train.sttn_trainer import TrainConfig
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # every comparison of phase s runs cuDNN's deterministic algorithms, in
+    # this process and in the ranks, as r1's resume check does
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _phase_s(card, tmp, torch.device("cuda", 0), token_attention,
+                        TrainConfig().batch_size, t0)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _phase_s(card, tmp, dev, token_attention, batch, t0):
+    """Phase s's checks, in order, on ``dev`` with cuDNN deterministic."""
+    token_attention.launches = 0
+    states = os.path.join(tmp, "s1_states")
+    ref = {"s1": s_sttn(dev, None, batch, 3, states), "s2": s_sttn(dev, None, TP_BATCH, 1),
+           "s3_flow": s_flow(dev, None), "s3_propainter": s_propainter(dev, None)}
+    log(f"[s] one process on {card}: STTN batch {batch} step ms "
+        f"{', '.join(f'{t:.1f}' for t in ref['s1']['step_ms'])} (the first warm), peak "
+        f"{ref['s1']['peak_memory_gib']:.2f} GiB; batch {TP_BATCH} "
+        f"{ref['s2']['step_ms'][0]:.1f} ms; flow {ref['s3_flow']['step_ms'][0]:.1f} ms; "
+        f"ProPainter {ref['s3_propainter']['step_ms'][0]:.1f} ms (each a first step)")
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(tmp, "ranks")
+    os.makedirs(out_dir)
+    spawn_ranks(DIST_RANKS, s_rank, out_dir, True, states)
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=True)
+             for r in range(DIST_RANKS)]
+    if any(r["backend"] != "gloo" or r["device"] != str(dev) for r in ranks):
+        raise AssertionError(f"[s] ranks on one card: {[(r['backend'], r['device']) for r in ranks]}")
+    result = {"ranks": DIST_RANKS, "one_process": {
+        k: {kk: v for kk, v in job.items() if kk != "params"} for k, job in ref.items()}}
+    failures = []
+
+    def check(what, job_ranks, job_ref):
+        rels, pdiff = compare_job(job_ranks, job_ref)
+        if max(rels) > TRAIN_CPU_RTOL:
+            failures.append(f"{what}: losses differ from one process by up to {max(rels):.3g} "
+                            f"relative (limit {TRAIN_CPU_RTOL}): "
+                            f"{[r['losses'] for r in job_ranks]} vs {job_ref['losses']}")
+        return rels, pdiff
+
+    for job, what in (("s1", f"s1 data {DIST_RANKS} x STTN batch {batch}, each step from one "
+                             f"process's state before it"),
+                      ("s2", "s2 data 1 x model 2"), ("s3_flow", "s3 flow completion"),
+                      ("s3_propainter", "s3 ProPainter")):
+        rels, pdiff = check(what, [r[job] for r in ranks], ref[job])
+        times = [r[job]["step_ms"] for r in ranks]
+        peaks = [r[job].get("peak_memory_gib") for r in ranks]
+        result[job] = {"max_rel_by_step": rels, "param_max_diff": pdiff, "step_ms": times,
+                       "peak_memory_gib": peaks}
+        log(f"[s] {what}, {DIST_RANKS} gloo ranks on {card} against one process: losses within "
+            f"{', '.join(f'{r:.3g}' for r in rels)} relative by step (limit {TRAIN_CPU_RTOL}), "
+            f"largest parameter difference {pdiff:.3g}; step ms by rank "
+            f"{[[round(t, 1) for t in r] for r in times]}"
+            + (f", peak memory by rank {[round(p, 2) for p in peaks]} GiB" if peaks[0] else ""))
+    sharded = ranks[0]["s2"]["sharded"]
+    if not sharded:
+        raise AssertionError("[s] s2: no convolution was split over the model group")
+    result["s2"]["sharded_convs"] = len(sharded)
+    log(f"[s2] {len(sharded)} convolutions split over the model group (e.g. {sharded[:3]})")
+    n = torch.cuda.device_count()
+    if n >= 2 and batch % n == 0:
+        nccl_dir = os.path.join(tmp, "ranks_nccl")
+        os.makedirs(nccl_dir)
+        spawn_ranks(n, s_rank, nccl_dir, False, states)
+        nccl = [torch.load(os.path.join(nccl_dir, f"rank{r}.pt"), weights_only=True)
+                for r in range(n)]
+        rels, pdiff = check(f"s1 NCCL over {n} cards", [r["s1"] for r in nccl], ref["s1"])
+        result["s1_nccl"] = {"cards": n, "max_rel_by_step": rels, "param_max_diff": pdiff,
+                             "step_ms": [r["s1"]["step_ms"] for r in nccl]}
+        log(f"[s1] NCCL, one rank on each of {n} cards: losses within "
+            f"{', '.join(f'{r:.3g}' for r in rels)} relative by step, "
+            f"largest parameter difference {pdiff:.3g}, step ms "
+            f"{[[round(t, 1) for t in r['s1']['step_ms']] for r in nccl]}")
+        ranks += nccl
+    result["torchrun"] = s_torchrun(tmp)
+    result["i3d"] = s_i3d(card, dev, tmp)
+    result["flow_losses"] = s_flow_losses(dev)
+    launches = token_attention.launches + sum(r["launches"] for r in ranks)
+    if launches != 0:
+        raise AssertionError(f"[s] the training paths launched the token-attention kernel "
+                             f"{launches} times")
+    result["launches"] = launches
+    result["seconds"] = time.perf_counter() - t0
+    log(f"[s] token-attention launches in phase s (this process and every rank): {launches}; "
+        f"phase s {result['seconds']:.1f} s")
+    if failures:
+        raise AssertionError("[s] " + "\n[s] ".join(failures))
+    return result
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2446,6 +2901,8 @@ def main(argv) -> int:
         done("q")
         training = phase_r(card, tmp)
         done("r")
+        training_distributed = phase_s(card, tmp)
+        done("s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # one sttn-auto transformer block's two kernel scales, as that path calls them
@@ -2488,6 +2945,7 @@ def main(argv) -> int:
         "gui": gui,
         "mesh": mesh,
         "training": training,
+        "training_distributed": training_distributed,
         "card": card,
     }]}))
     print(json.dumps({"ok": True, "device": {

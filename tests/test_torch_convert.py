@@ -228,23 +228,63 @@ def test_params_io_interchange(tmp_path):
             assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
 
 
+def _training_state_dicts():
+    """family -> a synthetic reference checkpoint of the training and metric
+    families, in the reference's key layout: i3d_rgb_imagenet.pt (its 1x1x1
+    logits conv included), torchvision vgg16 / vgg19 (a classifier key the
+    converter drops) and the lpips package's vgg.pth (its scaling_layer
+    buffers, dropped)."""
+    from tests.test_perceptual import TorchLPIPS, build_torch_vgg_features
+    from tests.test_torch_i3d import reference_state_dict
+
+    torch.manual_seed(0)
+    out = {"i3d": reference_state_dict()}
+    for vgg_type in ("vgg16", "vgg19"):
+        sd = {f"features.{k}": v for k, v in build_torch_vgg_features(vgg_type).state_dict().items()}
+        sd["classifier.0.weight"] = torch.zeros(4, 8)
+        out[vgg_type] = sd
+    out["lpips"] = TorchLPIPS().state_dict()
+    return out
+
+
+@pytest.mark.parametrize("family", ["i3d", "vgg16", "vgg19", "lpips"])
+def test_training_family_converters_match(family):
+    """convert/torch_{i3d,vgg,lpips}.py against vsr_tpu's, bit for bit."""
+    from vsr_tpu.convert import torch_i3d as jax_i3d
+    from vsr_tpu.convert import torch_lpips as jax_lpips
+    from vsr_tpu.convert import torch_vgg as jax_vgg
+    from vsr_tpu_torch.convert import torch_i3d, torch_lpips, torch_vgg
+
+    sd = _training_state_dicts()[family]
+    if family == "i3d":
+        want, got = jax_i3d.convert_i3d_state_dict(sd), torch_i3d.convert_i3d_state_dict(sd)
+        assert got["params"]["logits"]["kernel"].shape == (1024, 400)
+    elif family == "lpips":
+        want, got = jax_lpips.convert_lpips_state_dict(sd), torch_lpips.convert_lpips_state_dict(sd)
+    else:
+        want = jax_vgg.convert_vgg_state_dict(sd, family)
+        got = torch_vgg.convert_vgg_state_dict(sd, family)
+    assert_same_tree(want, got)
+
+
 def test_convert_cli_matches(tmp_path):
     """python -m vsr_tpu_torch.convert writes what python -m vsr_tpu.convert
-    writes; the training families exit naming ROADMAP.md item 10."""
+    writes: raft, and the training and metric families (i3d, vgg16, vgg19,
+    lpips), which the port's CLI refused until it had their converters."""
     from vsr_tpu.convert.__main__ import main as jax_main
     from vsr_tpu_torch.convert.__main__ import main
 
-    pth = str(tmp_path / "raft-things.pth")
-    torch.save(_tensors(build_raft_things_state_dict()), pth)
-    ours, theirs = str(tmp_path / "ours.npz"), str(tmp_path / "theirs.npz")
-    assert main(["raft", pth, "-o", ours]) == 0
-    assert jax_main(["raft", pth, "-o", theirs]) == 0
-    with np.load(ours) as a, np.load(theirs) as b:
-        assert a.files == b.files
-        assert all(np.array_equal(a[k], b[k]) for k in a.files)
-    for family in ("i3d", "vgg16", "vgg19", "lpips"):
-        with pytest.raises(SystemExit, match="item 10"):
-            main([family, pth, "-o", str(tmp_path / "x.npz")])
+    checkpoints = {"raft": _tensors(build_raft_things_state_dict()), **_training_state_dicts()}
+    for family, sd in checkpoints.items():
+        pth = str(tmp_path / f"{family}.pth")
+        torch.save(sd, pth)
+        ours, theirs = str(tmp_path / "ours.npz"), str(tmp_path / "theirs.npz")
+        assert main([family, pth, "-o", ours]) == 0
+        assert jax_main([family, pth, "-o", theirs]) == 0
+        with np.load(ours) as a, np.load(theirs) as b:
+            assert a.files == b.files, family
+            for k in a.files:
+                assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), (family, k)
 
 
 # ---- the loaders: reference checkpoints given as paths (ROADMAP.md F3) ----
@@ -361,6 +401,7 @@ def test_chip_smoke_reference_tree_layout():
     -> shape tables (it imports no test module); they list exactly the keys
     and shapes of the state dicts the converter tests build."""
     import chip_smoke
+    from tests.test_torch_i3d import i3d_reference_shapes
 
     specs = chip_smoke.reference_specs()
     want = {
@@ -369,6 +410,7 @@ def test_chip_smoke_reference_tree_layout():
         "flow_completion": {k: v.shape for k, v in build_flow_completion_state_dict().items()},
         "propainter": {k: v.shape for k, v in build_generator_state_dict().items()},
         "lama": {k: tuple(v.shape) for k, v in build_torch_lama().state_dict().items()},
+        "i3d": i3d_reference_shapes(),
     }
     assert set(specs) == set(want)
     for family, spec in want.items():

@@ -387,7 +387,10 @@ def test_default_trainer_uses_the_plain_attention_route():
 
 
 def test_mesh_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """Training across processes is ported (tests/test_torch_distributed.py):
+    a trainer's mesh is a TrainingMesh of process groups, and an inference
+    mesh (a list of devices) raises naming it."""
+    with pytest.raises(TypeError, match="TrainingMesh"):
         STTNTrainer(generator=tiny_generator(), discriminator=VideoDiscriminator(nf=4),
                     device="cpu", mesh=[torch.device("cpu")] * 2)
 
@@ -441,9 +444,16 @@ def test_train_sttn_without_card_raises(tmp_path, tiny_cli_models, monkeypatch):
         train_sttn.main(["--data", make_zip_videos(tmp_path / "videos"), "--steps", "1"])
 
 
-def test_train_sttn_distributed_exits_naming_the_roadmap_item(tmp_path):
-    with pytest.raises(SystemExit, match="item 10"):
-        train_sttn.main(["--data", str(tmp_path), "--distributed"])
+def test_train_sttn_distributed_exits_naming_the_roadmap_item(tmp_path, monkeypatch):
+    """--distributed trains under torchrun (tests/test_torch_distributed.py);
+    without torchrun's environment it raises naming the missing variables,
+    and trains nothing alone."""
+    from vsr_tpu_torch.parallel.distributed import TORCHRUN_ENV
+
+    for name in TORCHRUN_ENV:
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun.*RANK, WORLD_SIZE, LOCAL_RANK"):
+        train_sttn.main(["--data", str(tmp_path), "--distributed", "--device", "cpu"])
 
 
 # ---- F6: the kernel is forward-only ----

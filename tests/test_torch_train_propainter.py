@@ -164,7 +164,7 @@ def test_flow_trainer_checkpoint_and_defaults(flow_net, tmp_path):
         FlowCompletionTrainer(net=RecurrentFlowCompleteNet(), device="cpu")
     with pytest.raises(ValueError, match="edge head"):
         RecurrentFlowCompleteNet()(_t(flows), _t(masks), train=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="TrainingMesh"):  # an inference mesh
         FlowCompletionTrainer(device="cpu", mesh=["cpu"])
 
 
@@ -299,5 +299,5 @@ def test_gan_trainer_checkpoint_and_defaults(gan_setup, tmp_path):
                                 device="cpu")
     assert default.discriminator.conv0.weight.shape[0] == 32
     assert default.lpips is None
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="TrainingMesh"):  # an inference mesh
         PropainterTrainer(generator=ProPainterGenerator(**TINY_GEN), device="cpu", mesh=["cpu"])

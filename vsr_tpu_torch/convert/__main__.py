@@ -2,8 +2,8 @@
 
     python -m vsr_tpu_torch.convert <family> <checkpoint> [-o out.npz]
 
-The port's copy of ``python -m vsr_tpu.convert`` for the inference
-families; it needs torch and numpy, not jax. Families and their reference
+The port's copy of ``python -m vsr_tpu.convert``; it needs torch and
+numpy, not jax, and writes the same .npz. Families and their reference
 checkpoints:
     sttn-auto        sttn-auto/infer_model.pth      (['netG'] state dict)
     sttn-det         sttn-det/sttn.pth
@@ -13,10 +13,9 @@ checkpoints:
     propainter       propainter/ProPainter.pth
     dbnet-server     V5/ch_det/inference.pdiparams  (PP-HGNetV2-B4; needs paddle)
     dbnet-mobile     V5/ch_det_fast/inference.pdiparams (PP-LCNetV3; needs paddle)
-
-i3d, vgg16, vgg19 and lpips serve training losses and the VFID metric and
-are not ported yet: they exit with an error naming ROADMAP.md Queue 1
-item 10.
+    i3d              i3d_rgb_imagenet.pt            (VFID metric)
+    vgg19 / vgg16    torchvision VGG checkpoints    (perceptual loss)
+    lpips            lpips vgg checkpoint
 
 The output .npz loads via --models DIR on the main CLI of either package
 (expected filenames: sttn_auto.npz, sttn_det.npz, lama.npz, raft.npz,
@@ -43,8 +42,6 @@ _DEFAULT_NAME = {
     "vgg16": "vgg16.npz",
     "lpips": "lpips.npz",
 }
-# the training and metric families (ROADMAP.md Queue 1 item 10)
-_UNPORTED = ("i3d", "vgg16", "vgg19", "lpips")
 
 
 def _load(family: str, path: str):
@@ -80,9 +77,18 @@ def _load(family: str, path: str):
 
         preset = "server" if family == "dbnet-server" else "mobile"
         return convert_paddle_det_state_dict(load_pdiparams(path), preset)
-    if family in _UNPORTED:
-        raise SystemExit(f"{family}: this converter is not ported to vsr_tpu_torch yet "
-                         "(ROADMAP.md Queue 1 item 10)")
+    if family == "i3d":
+        from vsr_tpu_torch.convert.torch_i3d import load_i3d_checkpoint
+
+        return load_i3d_checkpoint(path)
+    if family in ("vgg19", "vgg16"):
+        from vsr_tpu_torch.convert.torch_vgg import load_vgg_checkpoint
+
+        return load_vgg_checkpoint(path, vgg_type=family)
+    if family == "lpips":
+        from vsr_tpu_torch.convert.torch_lpips import load_lpips_checkpoint
+
+        return load_lpips_checkpoint(path)
     raise SystemExit(f"unknown family: {family}")
 
 

@@ -255,3 +255,28 @@ def discriminator_state_dict_from_flax(params: Mapping[str, Any],
         state[f"conv{m.group(2)}.{m.group(3)}"] = torch.from_numpy(
             np.array(value, dtype=np.float32))
     return state
+
+
+# flax InceptionI3d module names -> the port's (the reference's endpoint names)
+_I3D_NAMES = {"conv1a": "Conv3d_1a_7x7", "conv2b": "Conv3d_2b_1x1", "conv2c": "Conv3d_2c_3x3",
+              "b3": "b3b", "conv": "conv3d"}
+_I3D_MODULE = re.compile(
+    r"(Conv3d_1a_7x7|Conv3d_2b_1x1|Conv3d_2c_3x3|Mixed_[345][b-f]/(b0|b1a|b1b|b2a|b2b|b3b))"
+    r"/(conv3d|bn)|logits")
+
+
+def i3d_state_dict_from_flax(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax InceptionI3d variables ('params' and 'batch_stats', nested or
+    '/'-joined) -> the port's InceptionI3d state dict: ``conv1a/conv`` ->
+    ``Conv3d_1a_7x7.conv3d`` (DHWIO -> OIDHW), ``mixed_3b/b3/bn`` ->
+    ``Mixed_3b.b3b.bn`` (scale, bias, mean, var -> weight, bias,
+    running_mean, running_var), the logits Dense (in, out) -> the Linear
+    (out, in). A tree without the logits head (a features-only init) maps
+    without it. An unknown module or leaf raises."""
+    renamed = {}
+    for path, value in _flatten(flat).items():
+        parts = path.split("/")
+        parts = [_I3D_NAMES.get(p, p) for p in parts[:-1]] + parts[-1:]
+        parts = [p.capitalize() if p.startswith("mixed_") else p for p in parts]
+        renamed["/".join(parts)] = value
+    return _checked_state_dict(renamed, _I3D_MODULE, "I3D")

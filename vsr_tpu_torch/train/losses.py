@@ -26,7 +26,15 @@ def adversarial_loss(outputs: torch.Tensor, is_real: bool, is_disc: bool,
     raise ValueError(f"unknown gan loss: {gan_type}")
 
 
-def masked_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+              mesh=None) -> torch.Tensor:
     """L1 over the masked region, normalised by the mask's density
-    (trainer_sttn.py:289-303)."""
-    return torch.mean(torch.abs(pred * mask - target * mask)) / torch.clamp(mask.mean(), min=1e-8)
+    (trainer_sttn.py:289-303). With a ``TrainingMesh`` the tensors are this
+    rank's slice of the global batch and the density is the global batch's
+    (averaged over the data group, no gradient), as GSPMD computes it: the
+    average of the ranks' losses is then the one-process loss, whatever
+    their masks."""
+    density = mask.mean()
+    if mesh is not None:
+        density = mesh.data_mean(density)
+    return torch.mean(torch.abs(pred * mask - target * mask)) / torch.clamp(density, min=1e-8)

@@ -1,5 +1,4 @@
-"""ProPainter training on one device: counterpart of
-``vsr_tpu/train/propainter_trainer.py``.
+"""ProPainter training: counterpart of ``vsr_tpu/train/propainter_trainer.py``.
 
 * Flow completion (the reference's video/core/trainer_flow_w_edge.py):
   masked L1 on the completed flow (hole and valid) plus a binary cross
@@ -13,8 +12,15 @@
   gradients, as the JAX step has none through it.
 
 Layouts are the port's ProPainter ones: videos [B, T, C, H, W], flows
-[B, T-1, 2, H, W]. Checkpoints are one ``ckpt_<step>.pt`` file. Data
-parallelism is not ported yet (ROADMAP item 10).
+[B, T-1, 2, H, W]. Checkpoints are one ``ckpt_<step>.pt`` file.
+
+``mesh=`` (a ``parallel.distributed.TrainingMesh``) trains across processes
+as the STTN trainer does (train/sttn_trainer.py): rank 0's weights on every
+rank, each data rank on its slice of the same global batch, the masked L1
+terms normalised by the global batch's density, gradients and metrics
+averaged over the data group. As in the JAX package, whose steps only
+constrain the batch to the "data" axis, nothing is split over a model
+group: its ranks compute the same step.
 """
 
 from __future__ import annotations
@@ -35,9 +41,11 @@ from vsr_tpu_torch.train.losses import masked_l1
 from vsr_tpu_torch.train.perceptual import lpips_loss
 from vsr_tpu_torch.train.sttn_trainer import (
     Checkpointed,
+    check_mesh,
     gan_update,
+    global_metrics,
     make_optimizer,
-    refuse_mesh,
+    replicate_or_shard,
 )
 from vsr_tpu_torch.utils.device import resolve_device
 
@@ -61,7 +69,7 @@ class FlowCompletionTrainer(Checkpointed):
     def __init__(self, cfg: Optional[FlowTrainConfig] = None,
                  net: Optional[RecurrentFlowCompleteNet] = None,
                  device="cuda", seed: int = 0, mesh=None):
-        refuse_mesh(mesh)
+        self.mesh = check_mesh(mesh)
         self.cfg = cfg or FlowTrainConfig()
         self.device = resolve_device(device)
         if net is None:
@@ -71,6 +79,7 @@ class FlowCompletionTrainer(Checkpointed):
             raise ValueError("the flow-completion trainer needs the edge head: "
                              "RecurrentFlowCompleteNet(edge_head=True)")
         self.net = net.to(self.device).train()
+        replicate_or_shard(self.net, mesh=self.mesh)
         self.opt, self.sched = make_optimizer(self.net, self.cfg)
         self.step_count = 0
 
@@ -80,27 +89,33 @@ class FlowCompletionTrainer(Checkpointed):
     def train_step(self, gt_flows, masks) -> Dict[str, torch.Tensor]:
         """gt_flows [B, T, 2, H, W], masks [B, T, 1, H, W] (numpy or
         tensors) -> loss, hole_l1, valid_l1, edge_bce (detached 0-d
-        tensors), having stepped the net (propainter_trainer.py:62-98)."""
+        tensors), having stepped the net (propainter_trainer.py:62-98).
+        With a mesh, B is the global batch: the edge targets are computed on
+        it, then every tensor is cut to this rank's slice."""
         gt = torch.as_tensor(gt_flows, dtype=torch.float32)
         # edge targets on the host, in the channels-last layout of canny.py
-        edges_np = flow_edges_host(np.moveaxis(gt.numpy(), 2, -1))
+        edges_np = flow_edges_host(np.moveaxis(gt.cpu().numpy(), 2, -1))
         targets = torch.from_numpy(np.ascontiguousarray(np.moveaxis(edges_np, -1, 2)))
-        gt, targets = gt.to(self.device), targets.to(self.device)
-        masks = torch.as_tensor(masks, dtype=torch.float32).to(self.device)
+        masks = torch.as_tensor(masks, dtype=torch.float32)
+        if self.mesh is not None:
+            gt, masks, targets = map(self.mesh.local_batch, (gt, masks, targets))
+        gt, masks, targets = gt.to(self.device), masks.to(self.device), targets.to(self.device)
         pred, edges = self.net(gt * (1 - masks), masks, train=True)
-        hole = masked_l1(pred, gt, masks)
-        valid = masked_l1(pred, gt, 1 - masks)
+        hole = masked_l1(pred, gt, masks, self.mesh)
+        valid = masked_l1(pred, gt, 1 - masks, self.mesh)
         edges = edges.reshape(targets.shape)
         bce = -(targets * torch.log(edges + 1e-8) + (1 - targets) * torch.log(1 - edges + 1e-8))
         edge = bce.mean()
         loss = self.cfg.flow_weight * (hole + valid) + self.cfg.edge_weight * edge
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            self.mesh.average_gradients(self.net)
         self.opt.step()
         self.sched.step()
         self.step_count += 1
-        return {"loss": loss.detach(), "hole_l1": hole.detach(), "valid_l1": valid.detach(),
-                "edge_bce": edge.detach()}
+        return global_metrics(("loss", "hole_l1", "valid_l1", "edge_bce"),
+                              (loss, hole, valid, edge), self.mesh)
 
 
 # ------------------------------------------------------------- generator
@@ -131,7 +146,7 @@ class PropainterTrainer(Checkpointed):
                  generator: Optional[ProPainterGenerator] = None,
                  discriminator: Optional[VideoDiscriminator] = None,
                  lpips: Optional[LPIPS] = None, device="cuda", seed: int = 0, mesh=None):
-        refuse_mesh(mesh)
+        self.mesh = check_mesh(mesh)
         self.cfg = cfg or PropainterTrainConfig()
         self.num_local_frames = num_local_frames
         self.device = resolve_device(device)
@@ -144,6 +159,7 @@ class PropainterTrainer(Checkpointed):
             init_random_(discriminator, seed + 1)
         self.generator = generator.to(self.device).train()
         self.discriminator = discriminator.to(self.device).train()
+        replicate_or_shard(self.generator, self.discriminator, mesh=self.mesh)
         self.lpips = None
         if lpips is not None:
             self.lpips = lpips.to(self.device).eval().requires_grad_(False)
@@ -160,10 +176,13 @@ class PropainterTrainer(Checkpointed):
         """frames [B, T, 3, H, W] in [-1, 1] (the first num_local_frames
         local, the rest reference frames), completed flows [B, lt-1, 2, H,
         W] each way, masks [B, T, 1, H, W] -> dis_loss, gen_loss, gan_loss,
-        hole_loss, valid_loss, perc_loss (detached 0-d tensors)."""
+        hole_loss, valid_loss, perc_loss (detached 0-d tensors). With a mesh,
+        B is the global batch and every rank steps on its slice."""
         cfg, l_t = self.cfg, self.num_local_frames
 
         def tensor(x):
+            if self.mesh is not None:
+                x = self.mesh.local_batch(x)
             return torch.as_tensor(x, dtype=torch.float32).to(self.device)
 
         frames, flows_f, flows_b, masks = map(tensor, (frames, flows_f, flows_b, masks))
@@ -179,10 +198,10 @@ class PropainterTrainer(Checkpointed):
         pred = self.generator(updated_all, (flows_f, flows_b), masks, updated_masks_all, l_t)
         comp = local_frames * (1 - local_masks) + pred * local_masks
         d_loss, _, _, gan = gan_update(self.discriminator, self.dis_opt, local_frames, comp,
-                                       cfg.gan_loss)
+                                       cfg.gan_loss, self.mesh)
         gan = gan * cfg.adversarial_weight
-        hole = masked_l1(pred, local_frames, local_masks) * cfg.hole_weight
-        valid = masked_l1(pred, local_frames, 1 - local_masks) * cfg.valid_weight
+        hole = masked_l1(pred, local_frames, local_masks, self.mesh) * cfg.hole_weight
+        valid = masked_l1(pred, local_frames, 1 - local_masks, self.mesh) * cfg.valid_weight
         perc = torch.zeros((), device=self.device)
         if cfg.perceptual_weight > 0 and self.lpips is not None:
             H, W = pred.shape[-2:]
@@ -192,10 +211,12 @@ class PropainterTrainer(Checkpointed):
         g_loss = gan + hole + valid + perc
         self.gen_opt.zero_grad(set_to_none=True)
         g_loss.backward()
+        if self.mesh is not None:
+            self.mesh.average_gradients(self.generator)
         self.gen_opt.step()
         self.gen_sched.step()
         self.dis_sched.step()
         self.step_count += 1
-        values = (d_loss, g_loss, gan, hole, valid, perc)
-        keys = ("dis_loss", "gen_loss", "gan_loss", "hole_loss", "valid_loss", "perc_loss")
-        return {k: v.detach() for k, v in zip(keys, values)}
+        return global_metrics(
+            ("dis_loss", "gen_loss", "gan_loss", "hole_loss", "valid_loss", "perc_loss"),
+            (d_loss, g_loss, gan, hole, valid, perc), self.mesh)

@@ -1,13 +1,20 @@
 """STTN training CLI: counterpart of ``vsr_tpu/train/train_sttn.py`` (the
-reference's backend/tools/train/train_sttn.py:16-96), on one device.
+reference's backend/tools/train/train_sttn.py:16-96).
 
 Usage:
   python -m vsr_tpu_torch.train.train_sttn --data <frames_root> [--config cfg.json]
       [--steps N] [--save-dir DIR] [--resume CKPT] [--device cuda]
+  torchrun --nproc_per_node=N -m vsr_tpu_torch.train.train_sttn --distributed --data ...
 
 ``--device`` defaults to cuda and fails without a card; ``--device cpu``
-trains on the CPU. ``--distributed`` (multi-GPU data parallelism) is not
-ported yet: ROADMAP item 10.
+trains on the CPU. Without ``--distributed`` it trains on that one device.
+``--distributed`` joins torchrun's process group (``init_distributed``: a
+bare cuda is cuda:LOCAL_RANK over NCCL, cpu is gloo) and trains data-parallel
+over every process, as the JAX package's ``create_mesh()`` spans every
+device: ``batch_size`` is the global batch, every rank draws the same
+batches from the dataset's seed and steps on its slice, rank 0 logs and
+writes the checkpoints, every rank restores ``--resume``. Without torchrun's
+environment it raises.
 """
 
 from __future__ import annotations
@@ -18,7 +25,8 @@ import json
 
 
 def parse_args(argv=None):
-    parser = argparse.ArgumentParser(description="Train STTN on one device")
+    parser = argparse.ArgumentParser(description="Train STTN on one device or, under "
+                                     "torchrun, data-parallel over its processes")
     parser.add_argument("--data", required=True,
                         help="Root of training videos (zips or frame dirs)")
     parser.add_argument("--config", default=None, help="TrainConfig JSON")
@@ -29,16 +37,29 @@ def parse_args(argv=None):
                         help="Checkpoint path to resume from")
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
     parser.add_argument("--distributed", action="store_true",
-                        help="Data-parallel training over several GPUs (not ported yet)")
+                        help="Data-parallel training over torchrun's processes")
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.distributed:
-        raise SystemExit("--distributed: data-parallel training is not ported yet "
-                         "(ROADMAP item 10, DDP)")
+    if not args.distributed:
+        return train(args, args.device)
+    import torch.distributed as dist
 
+    from vsr_tpu_torch.parallel.distributed import TrainingMesh, init_distributed
+
+    joined = not dist.is_initialized()  # this call owns the group it creates
+    device = init_distributed(args.device)
+    try:
+        return train(args, device, TrainingMesh())
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def train(args, device, mesh=None) -> int:
+    """Train as the arguments say on ``device`` (with a mesh, as this rank)."""
     from vsr_tpu_torch.train.dataset import FrameSequenceDataset
     from vsr_tpu_torch.train.sttn_trainer import STTNTrainer, TrainConfig
 
@@ -56,7 +77,7 @@ def main(argv=None) -> int:
         args.data, frame_w=cfg.frame_w, frame_h=cfg.frame_h,
         sample_length=cfg.sample_length)
 
-    trainer = STTNTrainer(cfg, device=args.device)
+    trainer = STTNTrainer(cfg, device=device, mesh=mesh)
     if args.resume:
         trainer.restore(args.resume)
 
@@ -67,7 +88,8 @@ def main(argv=None) -> int:
     remaining = cfg.iterations - trainer.step_count
     trainer.train(dataset.batches(cfg.batch_size), remaining, log_cb=log)
     path = trainer.save()
-    print(f"final checkpoint: {path}")
+    if mesh is None or mesh.is_main:
+        print(f"final checkpoint: {path}")
     return 0
 
 

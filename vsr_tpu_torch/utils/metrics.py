@@ -120,8 +120,9 @@ def vfid(real_videos, fake_videos, i3d_apply) -> float:
     """Video FID: I3D features of real/fake clips -> Frechet distance.
 
     real/fake_videos: [N, T, H, W, 3] in [-1, 1]; i3d_apply: callable
-    returning [N, 1024] features (the JAX package's models/i3d.InceptionI3d;
-    the port has no I3D network yet, ROADMAP item 10)."""
+    returning [N, 1024] features, numpy or a CPU tensor (the port's
+    models/i3d.InceptionI3d in eval mode, e.g. ``lambda v:
+    i3d(torch.from_numpy(v).to(dev)).cpu()`` under ``torch.no_grad()``)."""
     real = np.asarray(i3d_apply(real_videos))
     fake = np.asarray(i3d_apply(fake_videos))
     return frechet_distance(real, fake)
