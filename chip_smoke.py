@@ -96,7 +96,12 @@ non-zero and prints no result line):
       code at the same shapes) and peak memory. With --profile, a
       torch.profiler table in chiprun_out/chip_smoke_profile_propainter.txt;
   (m) ProPainter on the card against the CPU, fp32 with TF32 off, same
-      weights: RAFT on one 128x256 pair (flow within PP_FLOW_TOL px), the
+      weights: RAFT on one 128x256 pair (flow within PP_FLOW_TOL px);
+      raft_bi_flows on a 4-frame 128x256 crop of the noise clip against
+      RAFT.forward on each pair on the card and against raft_bi_flows on
+      the CPU (each within PP_FLOW_TOL px; beside them the same per-pair
+      comparison on the CPU, a second call, and the encoder's batch of 4
+      against each frame alone); the
       full-width generator's encode + forward_encoded on one small window
       (within PP_GEN_TOL); then one full-width band window through the
       generator in bf16 against fp32 on the card, from the same fp32 flows
@@ -276,7 +281,11 @@ PP_FRAMES = 70  # one propainter_max_load_num batch
 PP_RUNS = 2
 # ProPainter on the card (fp32, TF32 off) against the CPU: RAFT's flow in
 # pixels, and the generator's tanh output, the repo's activation-parity
-# bound (ROADMAP.md)
+# bound (ROADMAP.md). The flow bound also holds raft_bi_flows to
+# RAFT.forward on each pair on the card: on an H100 the batches of 6 pairs
+# and of 1 differ by 7.63e-5 px on flows of up to ~115 px (one fp32 ulp
+# there is 7.6e-6), where the CPU gives the two bit for bit (PERF.md); a
+# pair formed across clips or in the wrong direction is off by pixels
 PP_FLOW_TOL, PP_GEN_TOL = 1e-3, 1e-3
 # one band window through the generator, bf16 against fp32 on the card,
 # uint8 inside the hole: measured max 7, mean 0.589 on an H100 at 700 W
@@ -1277,6 +1286,7 @@ def phase_m(card, frames, mask, bf16):
 
     from vsr_tpu_torch.inpaint import propainter
     from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
+    from vsr_tpu_torch.models.propainter import raft_bi_flows
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1301,6 +1311,40 @@ def phase_m(card, frames, mask, bf16):
         if not torch.isfinite(got).all() or err > PP_FLOW_TOL:
             raise AssertionError(f"[m] RAFT card vs CPU: {err} > {PP_FLOW_TOL}")
         out["raft_flow_max_abs_err_px"] = err
+
+        # raft_bi_flows on a 4-frame crop of the noise clip (7 px a frame):
+        # every frame encoded once, both directions of the 3 pairs in one call
+        crop = np.stack([f[:128, :256] for f in synthetic_video(4)]).astype(np.float32)
+        clip4 = torch.from_numpy(crop / 127.5 - 1).permute(0, 3, 1, 2)[None].contiguous()
+        x = clip4[0].to(dev)
+        (ff, fb), dt_card = timed(lambda: raft_bi_flows(f32.raft, clip4.to(dev)))
+        def vs_per_pair(raft, flows, frames):
+            return max(float((f[0, t] - raft(frames[i:i + 1], frames[j:j + 1])[0]).abs().max())
+                       for t in range(3) for f, i, j in ((flows[0], t, t + 1),
+                                                         (flows[1], t + 1, t)))
+
+        pair_err = vs_per_pair(f32.raft, (ff, fb), x)
+        again = max(float((a - b).abs().max())
+                    for a, b in zip((ff, fb), raft_bi_flows(f32.raft, clip4.to(dev))))
+        enc_batch = float((f32.raft.encode(x)[0] - torch.cat(
+            [f32.raft.encode(x[i:i + 1])[0] for i in range(4)])).abs().max())
+        (cpu_ff, cpu_fb), dt_cpu = timed(lambda: raft_bi_flows(cpu_raft, clip4))
+        cpu_err = max(float((ff.cpu() - cpu_ff).abs().max()), float((fb.cpu() - cpu_fb).abs().max()))
+        cpu_pair_err = vs_per_pair(cpu_raft, (cpu_ff, cpu_fb), clip4[0])
+        finite = bool(torch.isfinite(ff).all() and torch.isfinite(fb).all())
+        log(f"[m] raft_bi_flows on a 4-frame 128x256 crop of the noise clip, card fp32 (TF32 "
+            f"off): flows {tuple(ff.shape)} each way, {1e3 * dt_card:.1f} ms wall (first call); "
+            f"max |err| vs RAFT.forward on each pair on the card {pair_err:.3e} px, vs the CPU "
+            f"{cpu_err:.3e} px (limit {PP_FLOW_TOL:g} each); on the CPU vs RAFT.forward on "
+            f"each pair {cpu_pair_err:.3e} px; a second call on the card {again:.3e} px apart; "
+            f"fnet on the 4 frames at once vs one at a time on the card {enc_batch:.3e}; "
+            f"forward flow |mean| {float(cpu_ff.abs().mean()):.3f} px; CPU {dt_cpu:.2f} s")
+        if not finite or pair_err > PP_FLOW_TOL or cpu_err > PP_FLOW_TOL:
+            raise AssertionError(f"[m] raft_bi_flows: finite {finite}, vs per pair {pair_err} px, "
+                                 f"vs CPU {cpu_err}")
+        out.update({"bi_flows_vs_per_pair_px": pair_err, "bi_flows_card_vs_cpu_px": cpu_err,
+                    "bi_flows_cpu_vs_per_pair_px": cpu_pair_err, "bi_flows_second_call_px": again,
+                    "raft_fnet_batch_vs_single": enc_batch})
 
         # the full-width generator on one small window: 3 local frames, 2 refs
         cpu_gen = copy.deepcopy(f32.generator).cpu()

@@ -4,6 +4,7 @@ i18n, cli parser), held against ``vsr_tpu``'s on the same inputs, made from
 a seed with numpy."""
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -328,6 +329,40 @@ def test_i18n_catalogue_matches(locale):
 
 def test_version_matches():
     assert __version__ == jax_version
+
+
+@pytest.mark.parametrize("module,name", [("version", "REFERENCE_VERSION"),
+                                         ("pipeline", "IMAGE_EXTENSIONS"),
+                                         ("detect.backbones", "HGNETV2_B4_OUT_CHANNELS")])
+def test_public_constants_match(module, name):
+    port = importlib.import_module(f"vsr_tpu_torch.{module}")
+    assert getattr(port, name) == getattr(importlib.import_module(f"vsr_tpu.{module}"), name)
+
+
+@pytest.mark.parametrize("scale", [0.5, 0.75, 1.0])
+def test_lcnetv3_det_out_channels_match(scale):
+    from vsr_tpu.detect.backbones import lcnetv3_det_out_channels as jax_out_channels
+    from vsr_tpu_torch.detect.backbones import lcnetv3_det_out_channels
+
+    assert lcnetv3_det_out_channels(scale) == jax_out_channels(scale)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_detector_static_helpers_match(seed):
+    """SubtitleDetector's passthroughs to the interval helpers, as vsr_tpu's."""
+    from vsr_tpu.detect.detector import SubtitleDetector as JaxDetector
+    from vsr_tpu_torch.detect.detector import SubtitleDetector
+
+    rng = np.random.default_rng(seed)
+    boxes = {int(f): [(1, 5, 2, 4)] if rng.random() < 0.5 else [(0, 3, 0, 3)]
+             for f in sorted(rng.choice(60, 30, replace=False))}
+    ranges = SubtitleDetector.find_continuous_ranges(boxes)
+    assert ranges == JaxDetector.find_continuous_ranges(boxes)
+    assert (SubtitleDetector.find_continuous_ranges_with_same_mask(boxes)
+            == JaxDetector.find_continuous_ranges_with_same_mask(boxes))
+    cuts = sorted(int(c) for c in rng.choice(60, 4, replace=False))
+    assert (SubtitleDetector.split_range_by_scene(ranges, cuts)
+            == JaxDetector.split_range_by_scene(ranges, cuts))
 
 
 def _fade_frames(rng, t=90, h=24, w=32):

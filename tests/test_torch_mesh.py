@@ -145,6 +145,22 @@ def test_sharded_windows_match_vsr_tpu_mesh(sttn_pair, cpu_mesh):
     _diff_ok(want, _run(_engine(model, [CPU, CPU]), frames), frac=1.0, limit=2)
 
 
+@pytest.mark.parametrize("t", [20, 13])
+def test_process_chunk_is_dispatch_then_fetch(sttn_pair, t):
+    """process_chunk, vsr_tpu's synchronous form, returns what dispatch +
+    fetch return, and matches vsr_tpu's process_chunk within 2 uint8."""
+    from vsr_tpu.inpaint.engine import STTNWindowEngine as JaxEngine
+
+    flax_model, params, model = sttn_pair
+    frames = np.random.default_rng(25).integers(0, 256, (t, H, W, 3), dtype=np.uint8)
+    got = _engine(model).process_chunk(frames)
+    np.testing.assert_array_equal(got, _run(_engine(model), frames))
+    want = JaxEngine(flax_model, params, clip_len=20, input_hw=(H, W), stride=5,
+                     ref_length=10).process_chunk(frames)
+    assert got.shape == want.shape == (t, H, W, 3)
+    _diff_ok(want, got, frac=1.0, limit=2)
+
+
 def test_sttn_auto_default_mesh(sttn_pair, monkeypatch):
     """STTNAutoInpainter builds its replicas once from default_inference_mesh
     and hands them to every engine; its frames match the unsharded run."""

@@ -11,8 +11,12 @@ import jax.numpy as jnp
 
 from vsr_tpu.ops import patch_attention as jpa
 from vsr_tpu.ops.upsample import upsample_bilinear_2x_align_corners as jax_upsample
+from vsr_tpu.ops.upsample import upsample_bilinear_align_corners as jax_upsample_to
 from vsr_tpu_torch.ops import patch_attention as tpa
-from vsr_tpu_torch.ops.upsample import upsample_bilinear_2x_align_corners
+from vsr_tpu_torch.ops.upsample import (
+    upsample_bilinear_2x_align_corners,
+    upsample_bilinear_align_corners,
+)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -99,3 +103,19 @@ def test_upsample_matches_jax(shape):
     got = upsample_bilinear_2x_align_corners(torch.from_numpy(x).permute(0, 3, 1, 2))
     want = jax_upsample(jnp.asarray(x))
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("shape,out_hw", [((1, 5, 6, 2), (13, 17)), ((2, 7, 3, 4), (4, 9)),
+                                          ((1, 1, 4, 3), (5, 8))])
+def test_upsample_to_size_matches_jax(shape, out_hw):
+    """Any output size (tests/test_ops.py::test_arbitrary_size's (13, 17)
+    among them), and the 2x form bit for bit through it."""
+    x = np.random.default_rng(8).standard_normal(shape).astype(np.float32)  # NHWC
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    got = upsample_bilinear_align_corners(xt, *out_hw)
+    assert got.shape == (shape[0], shape[3], *out_hw)
+    want = jax_upsample_to(jnp.asarray(x), *out_hw)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want), **TOL)
+    h, w = shape[1:3]
+    torch.testing.assert_close(upsample_bilinear_2x_align_corners(xt),
+                               upsample_bilinear_align_corners(xt, 2 * h, 2 * w), rtol=0, atol=0)

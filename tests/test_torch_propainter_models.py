@@ -4,11 +4,14 @@ the from_flax converters, in fp32 on the CPU:
 
 * RAFT at iters=3, corr_levels=2, corr_radius=2 on 64x96: the encoders
   within 1e-4, the flow within 1e-3 px, convex upsampling within 1e-5;
+  raft_bi_flows on two 4-frame clips at 32x48 within 1e-3 px of
+  vsr_tpu's, within 1e-5 of per-pair forward, and bit-identical for
+  every pair_chunk;
 * RecurrentFlowCompleteNet.forward_bidirect_flow and combine_flow within
   1e-4;
 * the tiny generator of tests/test_propainter.py (channel 16, hidden 32,
   2 blocks, 2 heads, window (3, 4), pool (2, 2)) stage by stage within
-  1e-4: encode, image propagation, feature propagation (with and without
+  1e-4: encode, image propagation (also as ``img_propagation``), feature propagation (with and without
   frame_valid), one transformer block (dense, frame_valid, masked_windows),
   decode and the whole forward_encoded;
 * the three converters load strictly from flax's init params, keep the
@@ -30,6 +33,7 @@ from vsr_tpu.models.propainter.flow_completion import (
 from vsr_tpu.models.propainter.generator import ProPainterGenerator as FlaxGenerator
 from vsr_tpu.models.propainter.raft import RAFT as FlaxRAFT
 from vsr_tpu.models.propainter.raft import convex_upsample_flow as jax_upsample
+from vsr_tpu.models.propainter.raft import raft_bi_flows as jax_raft_bi_flows
 from vsr_tpu_torch.convert.from_flax import (
     flow_completion_state_dict_from_flax,
     propainter_state_dict_from_flax,
@@ -39,7 +43,8 @@ from vsr_tpu_torch.inpaint.weights import init_random_
 from vsr_tpu_torch.models.propainter import generator as gen
 from vsr_tpu_torch.models.propainter.flow_completion import RecurrentFlowCompleteNet
 from vsr_tpu_torch.models.propainter.generator import ProPainterGenerator
-from vsr_tpu_torch.models.propainter.raft import RAFT, convex_upsample_flow
+from vsr_tpu_torch.models.propainter import RAFT, raft_bi_flows
+from vsr_tpu_torch.models.propainter.raft import convex_upsample_flow
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 RAFT_KW = dict(iters=3, corr_levels=2, corr_radius=2)
@@ -121,6 +126,50 @@ def test_convex_upsample_matches_flax():
     want = np.asarray(jax_upsample(jnp.asarray(flow), jnp.asarray(mask)))
     got = convex_upsample_flow(_t(flow), _t(mask))
     np.testing.assert_allclose(_np(got), want, rtol=1e-5, atol=1e-5)
+
+
+def _clips(seed, b=2, t=4, h=32, w=48):
+    """b clips of t frames in [-1, 1], each frame the one before shifted by
+    (1, 2) px, plus noise; the clips differ, so a pair across them shows."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-1, 1, (b, h + 2 * t, w + t, 3))
+    frames = np.stack([base[:, 2 * i:2 * i + h, i:i + w] for i in range(t)], 1)
+    return (frames + rng.normal(0, 0.05, frames.shape)).astype(np.float32)
+
+
+def test_raft_bi_flows_matches_flax(raft_pair):
+    flax_model, variables, model = raft_pair
+    frames = _clips(4)
+    want = jax_raft_bi_flows(flax_model, variables, jnp.asarray(frames))
+    with torch.no_grad():
+        got = raft_bi_flows(model, _t(frames))
+    for g, w in zip(got, want):
+        assert g.shape == (2, 3, 2, 32, 48)
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=0, atol=1e-3)
+    assert np.abs(np.asarray(want[0])).max() > 0.1  # not trivially zero
+
+
+@pytest.mark.parametrize("pair_chunk", [None, 1, 4])
+def test_raft_bi_flows_matches_per_pair_forward(raft_pair, pair_chunk):
+    """Encode-once flows against RAFT.forward on each pair of each clip
+    (tests/test_propainter.py::test_encode_once_matches_call for the JAX
+    package); a pair_chunk of 1 or 4 of the 6 pairs (4 spans both clips)
+    gives the flows of one call bit for bit."""
+    _, _, model = raft_pair
+    frames = _t(_clips(5))
+    with torch.no_grad():
+        ff, fb = raft_bi_flows(model, frames, pair_chunk=pair_chunk)
+        whole = raft_bi_flows(model, frames)
+        for b in range(2):
+            for t in range(3):
+                np.testing.assert_allclose(
+                    ff[b, t].numpy(), model(frames[b, t:t + 1], frames[b, t + 1:t + 2])[0].numpy(),
+                    rtol=1e-5, atol=1e-5)
+                np.testing.assert_allclose(
+                    fb[b, t].numpy(), model(frames[b, t + 1:t + 2], frames[b, t:t + 1])[0].numpy(),
+                    rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ff, whole[0], rtol=0, atol=0)
+    torch.testing.assert_close(fb, whole[1], rtol=0, atol=0)
 
 
 # ---- flow completion ----
@@ -205,6 +254,21 @@ def test_image_propagation_matches_flax():
                                      *map(jnp.asarray, flows))
     got = gen.image_propagation(_t(frames), _t(masks), *map(_t, flows))
     for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-6, atol=1e-6)
+
+
+def test_img_propagation_is_image_propagation(gen_pair):
+    """The reference model's method name, with its argument order (flows
+    before masks), as vsr_tpu's ProPainterGenerator.img_propagation."""
+    flax_model, variables, model = gen_pair
+    frames, flows, masks, _ = _window_inputs(8, t=5, lt=5)
+    flows = [np.round(f * 2) / 2 for f in flows]
+    want = flax_model.apply(variables, jnp.asarray(frames), *map(jnp.asarray, flows),
+                            jnp.asarray(masks), method="img_propagation")
+    got = model.img_propagation(_t(frames), *map(_t, flows), _t(masks))
+    same = gen.image_propagation(_t(frames), _t(masks), *map(_t, flows))
+    for g, s, w in zip(got, same, want):
+        torch.testing.assert_close(g, s, rtol=0, atol=0)
         np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-6, atol=1e-6)
 
 

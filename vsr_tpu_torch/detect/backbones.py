@@ -29,6 +29,7 @@ HGNETV2_B4_STAGES: Tuple[Tuple, ...] = (
     (512, 192, 1024, 3, True, True, 5, 6),
     (1024, 384, 2048, 1, True, True, 5, 6),
 )
+HGNETV2_B4_OUT_CHANNELS = [cfg[2] for cfg in HGNETV2_B4_STAGES]
 
 
 class ConvBN(nn.Module):
@@ -164,6 +165,10 @@ _LCNET_DET_CONFIG = {
 _LCNET_DET_MV_C = (16, 24, 56, 480)
 
 
+def lcnetv3_det_out_channels(scale: float = 0.75) -> List[int]:
+    return [int(c * scale) for c in _LCNET_DET_MV_C]
+
+
 class PPLCNetV3(nn.Module):
     """PP-LCNetV3 det backbone (PP-OCRv5_mobile_det, scale 0.75):
     [B, 3, H, W] -> 4 maps at strides 4..32, projected by 1x1 convs
@@ -183,7 +188,7 @@ class PPLCNetV3(nn.Module):
         self._blocks = [f"{g}_{i}" for g, b in _LCNET_DET_CONFIG.items() for i in range(len(b))]
         # taps after blocks3..6: strides 4/8/16/32
         self._taps = {f"{g}_{len(b) - 1}" for g, b in list(_LCNET_DET_CONFIG.items())[1:]}
-        self.out_channels = [int(mv * scale) for mv in _LCNET_DET_MV_C]
+        self.out_channels = lcnetv3_det_out_channels(scale)
         for i, (cin, cout) in enumerate(zip(taps[1:], self.out_channels)):
             self.add_module(f"layer_list_{i}", nn.Conv2d(cin, cout, 1))
 

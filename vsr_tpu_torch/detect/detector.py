@@ -32,7 +32,13 @@ from vsr_tpu_torch.detect.postprocess import db_postprocess
 from vsr_tpu_torch.detect.preprocess import preprocess_frame
 from vsr_tpu_torch.inpaint.weights import load_dbnet_weights
 from vsr_tpu_torch.io.video import VideoReader, read_video_info
-from vsr_tpu_torch.masks.intervals import is_frame_number_in_ab_sections, unify_regions
+from vsr_tpu_torch.masks.intervals import (
+    find_continuous_ranges,
+    find_continuous_ranges_with_same_mask,
+    is_frame_number_in_ab_sections,
+    split_range_by_scene,
+    unify_regions,
+)
 from vsr_tpu_torch.utils.device import resolve_device
 
 Box = Tuple[int, int, int, int]  # (xmin, xmax, ymin, ymax)
@@ -193,3 +199,10 @@ class SubtitleDetector:
             tol_y=self.config.subtitle_area_pixel_tolerance_y,
         )
         return {k: v for k, v in out.items() if v}
+
+    # convenience passthroughs mirroring the reference static helpers
+    find_continuous_ranges = staticmethod(find_continuous_ranges)
+    find_continuous_ranges_with_same_mask = staticmethod(
+        find_continuous_ranges_with_same_mask
+    )
+    split_range_by_scene = staticmethod(split_range_by_scene)

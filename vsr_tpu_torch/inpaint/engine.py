@@ -306,3 +306,8 @@ class STTNWindowEngine:
         if done is not None:
             done.synchronize()
         return host_out.numpy()[:t_valid]
+
+    def process_chunk(self, frames: np.ndarray,
+                      masks: Optional[np.ndarray] = None) -> np.ndarray:
+        """Synchronous dispatch+fetch."""
+        return self.fetch(self.dispatch(frames, masks))

@@ -60,11 +60,9 @@ from vsr_tpu_torch.inpaint.weights import (
 from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
 from vsr_tpu_torch.models.propainter.flow_completion import RecurrentFlowCompleteNet
 from vsr_tpu_torch.models.propainter.generator import ProPainterGenerator, image_propagation
-from vsr_tpu_torch.models.propainter.raft import RAFT
+from vsr_tpu_torch.models.propainter.raft import ENCODE_CHUNK, RAFT, raft_bi_flows
 from vsr_tpu_torch.parallel.mesh import replicate
 from vsr_tpu_torch.utils.device import items_per_chunk, resolve_device
-
-ENCODE_CHUNK = 16  # frames a RAFT / generator encoder call takes
 
 
 def get_ref_index(mid, neighbor_ids, length, ref_stride=10, ref_num=-1):
@@ -162,24 +160,12 @@ class PropainterInpainter:
         """frames_n [T, 3, H, W] in [-1, 1] -> (flows_f, flows_b), each
         [T-1, 2, H, W]: flow i is frame i -> i+1, and i+1 -> i."""
         T, _, H, W = frames_n.shape
-        enc = [self.raft.encode(frames_n[s:s + ENCODE_CHUNK]) for s in range(0, T, ENCODE_CHUNK)]
-        fmap, net, inp = (torch.cat(parts) for parts in zip(*enc))
-        del enc
-        n_pairs = T - 1
         # both directions of a chunk go in one call: 2 pyramids a pair, in at
-        # most 40% of the free memory (the rest for the lookups, the update
-        # block and the allocator's fragments)
-        chunk = items_per_chunk(self.device, n_pairs, 2 * raft_pair_bytes(H, W), fraction=0.4)
-        flows_f, flows_b = [], []
-        for s in range(0, n_pairs, chunk):
-            e = min(s + chunk, n_pairs)
-            a, b = slice(s, e), slice(s + 1, e + 1)
-            flows = self.raft.forward_encoded(
-                torch.cat([fmap[a], fmap[b]]), torch.cat([fmap[b], fmap[a]]),
-                torch.cat([net[a], net[b]]), torch.cat([inp[a], inp[b]]))
-            flows_f.append(flows[:e - s])
-            flows_b.append(flows[e - s:])
-        return torch.cat(flows_f), torch.cat(flows_b)
+        # most 40% of the free memory (the rest for the encodings, the
+        # lookups, the update block and the allocator's fragments)
+        chunk = items_per_chunk(self.device, T - 1, 2 * raft_pair_bytes(H, W), fraction=0.4)
+        flows_f, flows_b = raft_bi_flows(self.raft, frames_n[None], pair_chunk=chunk)
+        return flows_f[0], flows_b[0]
 
     def _flow_complete(self, flows_f, flows_b, masks):
         bi = (flows_f[None], flows_b[None])

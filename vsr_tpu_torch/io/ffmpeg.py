@@ -32,3 +32,6 @@ def find_ffmpeg() -> Optional[str]:
             return candidate
     return None
 
+
+def has_ffmpeg() -> bool:
+    return find_ffmpeg() is not None

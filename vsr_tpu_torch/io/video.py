@@ -1,5 +1,5 @@
-"""Video decode/encode with background prefetch (copied from
-``vsr_tpu/io/video.py``: the reader, prefetcher and writer the port uses).
+"""Video decode/encode with background prefetch (copy of
+``vsr_tpu/io/video.py``).
 
 Replaces the reference's cv2.VideoCapture + daemon prefetch thread +
 FFmpegVideoWriter pipe (backend/tools/video_io.py:12-104). Design goals:
@@ -20,7 +20,7 @@ import subprocess
 import tempfile
 import threading
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import cv2
 import numpy as np
@@ -34,6 +34,10 @@ class VideoInfo:
     height: int
     fps: float
     frame_count: int
+
+    @property
+    def size(self) -> Tuple[int, int]:
+        return (self.width, self.height)
 
 
 def read_video_info(path: str) -> VideoInfo:
@@ -71,6 +75,13 @@ class VideoReader:
 
     def release(self) -> None:
         self.cap.release()
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        while True:
+            ok, frame = self.read()
+            if not ok:
+                return
+            yield frame
 
 
 class FramePrefetcher:
@@ -138,6 +149,7 @@ class VideoWriter:
         size: Tuple[int, int],
         crf: int = 18,
         preset: str = "fast",
+        force_cv2: bool = False,
     ):
         self.path = path
         self.size = size
@@ -145,7 +157,7 @@ class VideoWriter:
         self._cv2_writer: Optional[cv2.VideoWriter] = None
         self._frames_written = 0
         self._stderr_file = None
-        ffmpeg = find_ffmpeg()
+        ffmpeg = None if force_cv2 else find_ffmpeg()
         if ffmpeg:
             w, h = size
             cmd = [
@@ -201,6 +213,10 @@ class VideoWriter:
             self._cv2_writer.write(frame)
         self._frames_written += 1
 
+    @property
+    def frames_written(self) -> int:
+        return self._frames_written
+
     def release(self) -> None:
         if self._proc is not None:
             broken = False
@@ -227,3 +243,63 @@ class VideoWriter:
         if self._cv2_writer is not None:
             self._cv2_writer.release()
             self._cv2_writer = None
+
+
+class FFmpegVideoReader:
+    """Deterministic BGR frame reader over an ffmpeg rawvideo pipe.
+
+    The cv2 reader depends on the build's codec plugins; the ffmpeg pipe
+    gives bit-identical decodes across machines (SURVEY §7 step 2). Requires
+    an ffmpeg binary (vsr_tpu_torch.io.ffmpeg.find_ffmpeg) — callers fall
+    back to VideoReader when unavailable. read()/release() interface matches
+    cv2.VideoCapture.
+    """
+
+    def __init__(self, path: str):
+        ffmpeg = find_ffmpeg()
+        if ffmpeg is None:
+            raise RuntimeError("ffmpeg binary not found")
+        self.path = path
+        self.info = read_video_info(path)
+        self._frame_bytes = self.info.width * self.info.height * 3
+        self._proc = subprocess.Popen(
+            [ffmpeg, "-i", path, "-f", "rawvideo", "-pix_fmt", "bgr24",
+             "-loglevel", "error", "-"],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL,
+            bufsize=self._frame_bytes * 4,
+        )
+
+    def read(self) -> Tuple[bool, Optional[np.ndarray]]:
+        buf = self._proc.stdout.read(self._frame_bytes)
+        if buf is None or len(buf) < self._frame_bytes:
+            return False, None
+        frame = np.frombuffer(buf, np.uint8).reshape(
+            self.info.height, self.info.width, 3)
+        return True, frame.copy()
+
+    def release(self) -> None:
+        try:
+            self._proc.stdout.close()
+        except Exception:
+            pass
+        self._proc.terminate()
+        try:
+            self._proc.wait(timeout=5)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+
+
+def open_reader(path: str, prefer_ffmpeg: bool = False):
+    """Best decoder available: ffmpeg pipe when requested and present."""
+    if prefer_ffmpeg and find_ffmpeg() is not None:
+        return FFmpegVideoReader(path)
+    return VideoReader(path)
+
+
+def read_all_frames(path: str) -> list:
+    """Read every frame of a (short) video into a list of BGR arrays."""
+    reader = VideoReader(path)
+    frames = list(iter(reader))
+    reader.release()
+    return frames

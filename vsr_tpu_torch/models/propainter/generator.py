@@ -482,6 +482,12 @@ class ProPainterGenerator(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.dec_conv2.weight.dtype
 
+    def img_propagation(self, masked_frames, flows_f, flows_b, masks,
+                        interpolation="nearest"):
+        """The reference model's method name for ``image_propagation``."""
+        return image_propagation(masked_frames, masks, flows_f, flows_b,
+                                 interpolation)
+
     def decode(self, feat: torch.Tensor) -> torch.Tensor:
         x = _lrelu(self.dec_deconv0(upsample_bilinear_2x_align_corners(feat)))
         x = _lrelu(self.dec_conv1(x))

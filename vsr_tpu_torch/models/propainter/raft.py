@@ -18,11 +18,13 @@ pyramid and the coordinates are fp32.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+ENCODE_CHUNK = 16  # frames a RAFT / generator encoder call takes
 
 
 class _Norm(nn.Module):
@@ -257,3 +259,37 @@ class RAFT(nn.Module):
     def forward(self, image1: torch.Tensor, image2: torch.Tensor) -> torch.Tensor:
         fmap1, net, inp = self.encode(image1)
         return self.forward_encoded(fmap1, self.fnet(image2).float(), net, inp)
+
+
+def raft_bi_flows(raft: RAFT, frames: torch.Tensor,
+                  pair_chunk: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bidirectional flows for consecutive pairs (flow_comp_raft.py:40-55).
+
+    frames: [B, T, 3, H, W] in [-1, 1] -> (flows_f, flows_b), each
+    [B, T-1, 2, H, W]: flow t is frame t -> t+1, and t+1 -> t. The JAX
+    package's ``raft_bi_flows(raft, params, frames)`` takes the flax params;
+    the port's module owns its weights, so there is no ``params``.
+
+    Every frame is encoded once, ENCODE_CHUNK frames a call. Pairs are formed
+    within each clip, never across clips; both directions of ``pair_chunk``
+    pairs (all pairs when None) go through one ``forward_encoded`` call.
+    """
+    B, T = frames.shape[:2]
+    flat = frames.reshape(B * T, *frames.shape[2:])
+    enc = [raft.encode(flat[s:s + ENCODE_CHUNK]) for s in range(0, B * T, ENCODE_CHUNK)]
+    fmap, net, inp = (torch.cat(parts) for parts in zip(*enc))
+    del enc
+    # the flat index of each pair's first frame, clip by clip
+    first = torch.arange(B * T, device=fmap.device).reshape(B, T)[:, :-1].reshape(-1)
+    chunk = pair_chunk or len(first)
+    flows_f, flows_b = [], []
+    for s in range(0, len(first), chunk):
+        a = first[s:s + chunk]
+        b = a + 1
+        flows = raft.forward_encoded(
+            torch.cat([fmap[a], fmap[b]]), torch.cat([fmap[b], fmap[a]]),
+            torch.cat([net[a], net[b]]), torch.cat([inp[a], inp[b]]))
+        flows_f.append(flows[:len(a)])
+        flows_b.append(flows[len(a):])
+    shape = (B, T - 1, 2, *frames.shape[-2:])
+    return torch.cat(flows_f).reshape(shape), torch.cat(flows_b).reshape(shape)

@@ -37,7 +37,7 @@ from vsr_tpu_torch.masks.intervals import (
     split_range_by_scene,
 )
 from vsr_tpu_torch.masks.mask import create_mask
-from vsr_tpu_torch.utils.common import is_image_file
+from vsr_tpu_torch.utils.common import IMAGE_EXTENSIONS, is_image_file  # noqa: F401
 from vsr_tpu_torch.utils.device import resolve_device
 
 
