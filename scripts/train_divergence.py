@@ -25,9 +25,11 @@ implementation warns and runs, and the script prints the ops that warned
 in the first process's runs A and B.
 
 It also runs the backward of the STTN decoder's two align-corners 2x
-upsamples (F.interpolate, at the shapes of a TrainConfig() batch) twice on
-the same input and gradient, with deterministic algorithms off and on, and
-prints the largest difference between the two input gradients of each.
+upsamples (at the shapes of a TrainConfig() batch) twice on the same input
+and gradient, with deterministic algorithms off and on, and prints the
+largest difference between the two input gradients of each: the port's
+upsample (vsr_tpu_torch/ops/upsample.py, whose backward is two matmuls)
+and, beside it, F.interpolate's own backward (PyTorch's atomic adds).
 """
 
 from __future__ import annotations
@@ -80,25 +82,33 @@ def ranks(tmp, name, states):
 
 
 def upsample_backward_repeat(dev):
-    """{mode: {shape: largest difference between two runs of the backward of
-    an align-corners 2x upsample of that input shape}}, deterministic
-    algorithms off and on; the setting is restored."""
+    """{op: {mode: {shape: largest difference between two runs of the
+    backward of an align-corners 2x upsample of that input shape}}} for the
+    port's op and F.interpolate, deterministic algorithms off and on; the
+    setting is restored."""
     import torch.nn.functional as F
 
+    from vsr_tpu_torch.ops.upsample import upsample_bilinear_2x_align_corners
+
+    ops = {"port": upsample_bilinear_2x_align_corners,
+           "F.interpolate": lambda x: F.interpolate(x, scale_factor=2, mode="bilinear",
+                                                    align_corners=True)}
     before = torch.are_deterministic_algorithms_enabled()
-    gen = torch.Generator(dev).manual_seed(0)
     out = {}
     try:
-        for mode in (False, True):
-            torch.use_deterministic_algorithms(mode, warn_only=True)
-            out[f"deterministic={mode}"] = diffs = {}
-            for shape in ((40, 256, 30, 160), (40, 64, 60, 320)):  # decoder inputs
-                x = torch.randn(shape, device=dev, generator=gen, requires_grad=True)
-                y = F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
-                g = torch.randn(y.shape, device=dev, generator=gen)
-                first, second = (torch.autograd.grad(y, x, g, retain_graph=True)[0]
-                                 for _ in range(2))
-                diffs[str(shape)] = float((first - second).abs().max())
+        for op_name, op in ops.items():
+            out[op_name] = by_mode = {}
+            for mode in (False, True):
+                torch.use_deterministic_algorithms(mode, warn_only=True)
+                by_mode[f"deterministic={mode}"] = diffs = {}
+                gen = torch.Generator(dev).manual_seed(0)
+                for shape in ((40, 256, 30, 160), (40, 64, 60, 320)):  # decoder inputs
+                    x = torch.randn(shape, device=dev, generator=gen, requires_grad=True)
+                    y = op(x)
+                    g = torch.randn(y.shape, device=dev, generator=gen)
+                    first, second = (torch.autograd.grad(y, x, g, retain_graph=True)[0]
+                                     for _ in range(2))
+                    diffs[str(shape)] = float((first - second).abs().max())
     finally:
         torch.use_deterministic_algorithms(before, warn_only=True)
     return out
@@ -149,9 +159,10 @@ def main(argv):
     if deterministic:
         print(f"ops with no deterministic implementation (warned in A and B): "
               f"{nondeterministic or 'none'}")
-    for mode, diffs in result["upsample_backward_repeat"].items():
-        print(f"align-corners 2x upsample backward run twice, {mode}: largest gradient "
-              f"difference {diffs} on {card}")
+    for op_name, by_mode in result["upsample_backward_repeat"].items():
+        for mode, diffs in by_mode.items():
+            print(f"align-corners 2x upsample backward ({op_name}) run twice, {mode}: "
+                  f"largest gradient difference {diffs} on {card}")
     for name in ("B", "ranks", "ranks from A"):
         r = result[name]
         steps = ", ".join(f"{s['rel']:.3g} ({s['loss']})" for s in r["by_step"])

@@ -1,0 +1,163 @@
+"""The port's bench scripts (bench_torch.py, scripts/bench_modes_torch.py,
+bench_parity_torch.py) against the JAX package's (bench.py,
+scripts/bench_modes.py, bench_parity.py): the same inputs, the same helpers,
+bench_torch's trial rule and result line, and one CPU run of
+bench_parity_torch's config 2 end to end. Every script is loaded by path;
+the JAX scripts' module level imports only numpy, cv2 and the standard
+library."""
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import cv2
+import numpy as np
+import pytest
+
+from vsr_tpu.masks.mask import create_mask as jax_create_mask
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load(relpath):
+    name = "_bench_" + os.path.basename(relpath)[:-3]
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, relpath))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture(scope="module")
+def scripts():
+    return {name: _load(path) for name, path in (
+        ("bench_torch", "bench_torch.py"),
+        ("modes", "scripts/bench_modes.py"), ("modes_torch", "scripts/bench_modes_torch.py"),
+        ("parity", "bench_parity.py"), ("parity_torch", "bench_parity_torch.py"))}
+
+
+def test_bench_frames_and_mask_equal_bench_py(scripts):
+    """bench.py's frames (its expression, bench.py:94-96) and its mask
+    (vsr_tpu's create_mask with its band, bench.py:98)."""
+    bench = scripts["bench_torch"]
+    n = 3
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+    want = [np.roll(base, 7 * i, axis=1) for i in range(n)]
+    got = bench.synthetic_frames(n)
+    assert (bench.W, bench.H) == (1920, 1080)
+    assert len(got) == n and all(np.array_equal(a, b) for a, b in zip(got, want))
+    np.testing.assert_array_equal(
+        bench.bench_mask(), jax_create_mask((1080, 1920), [(300, 1620, 960, 1040)]))
+
+
+def test_bench_modes_geometry_and_frames_equal(scripts):
+    jax_side, port = scripts["modes"], scripts["modes_torch"]
+    assert (port.W, port.H, port.BAND) == (jax_side.W, jax_side.H, jax_side.BAND)
+    assert port.MODE_FRAMES == jax_side.MODE_FRAMES
+    for a, b in zip(port.make_frames(3), jax_side.make_frames(3)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_stub_detector_equals_bench_parity(scripts):
+    jax_side, port = scripts["parity"], scripts["parity_torch"]
+    box = (10, 90, 50, 60)
+    for total in (1, 5, 16):
+        a, b = port.StubDetector(box, total), jax_side.StubDetector(box, total)
+        assert a.find_subtitle_frame_no() == b.find_subtitle_frame_no()
+        assert a.detect_subtitle(None) == b.detect_subtitle(None)
+
+
+def test_video_stats_and_trim_equal_bench_parity(scripts, tmp_path):
+    """A tiny clip: trim_video's frames and video_stats' count and PSNR are
+    the JAX script's."""
+    jax_side, port = scripts["parity"], scripts["parity_torch"]
+    src = str(tmp_path / "src.mp4")
+    port.synthetic_video(src, 12)
+    results = []
+    for side in (port, jax_side):
+        clip, out = str(tmp_path / f"{side.__name__}_clip.mp4"), str(tmp_path / "out.mp4")
+        n = side.trim_video(src, clip, 11, scale=0.25)
+        cap = cv2.VideoCapture(clip)
+        size = (cap.get(cv2.CAP_PROP_FRAME_WIDTH), cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+        cap.release()
+        # an "output": the clip with one band blurred
+        cap, frames = cv2.VideoCapture(clip), []
+        ok, frame = cap.read()
+        while ok:
+            frame[200:240] = cv2.blur(frame[200:240], (9, 9))
+            frames.append(frame)
+            ok, frame = cap.read()
+        cap.release()
+        writer = cv2.VideoWriter(out, cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                                 (frames[0].shape[1], frames[0].shape[0]))
+        for frame in frames:
+            writer.write(frame)
+        writer.release()
+        results.append((n, size, side.video_stats(clip, out)))
+    assert results[0] == results[1]
+    assert results[0][0] == 11 and results[0][1] == (480.0, 256.0)
+    assert results[0][2][0] == 11 and np.isfinite(results[0][2][1])
+
+
+@pytest.mark.parametrize("times, trials, want_extra", [
+    ([1.0, 1.1, 1.2, 1.0, 1.05], 5, 0),            # spread 20%: no retry
+    ([1.5, 1.0, 1.0, 1.0, 1.0, 1.0], 5, 1),        # one extra drops the 1.5
+    ([1.0, 2.0, 1.0, 1.0, 1.0, 3.0, 1.0, 1.0, 1.0, 1.0], 5, 4),  # up to 4
+    ([1.0, 1.3, 1.0, 1.3, 1.0, 1.3, 1.0, 1.3, 1.0, 1.3, 1.0], 5, 4),  # never settles
+])
+def test_trial_rule(scripts, times, trials, want_extra):
+    """Fake timings: no retry at <= 20%, extra trials while the last
+    ``trials`` spread over 20%, at most 4; best, median and spread of all."""
+    bench = scripts["bench_torch"]
+    feed = iter(times)
+    got = bench.run_trials(lambda: next(feed), trials, 4)
+    assert got == times[:trials + want_extra]
+    summary = bench.summarize(got, 250)
+    assert summary["value"] == 250 / min(got)
+    assert summary["median"] == 250 / float(np.median(got))
+    assert summary["spread"] == (max(got) - min(got)) / min(got)
+    assert summary["trial_s"] == got
+
+
+def test_result_line_keys(scripts):
+    bench = scripts["bench_torch"]
+    summary = bench.summarize([2.5, 2.6, 2.55], 250)
+    line = bench.result_line(summary, 250, "bfloat16", ("NVIDIA H100 80GB HBM3", 700.0),
+                             800, 800, (4, 0.11))
+    assert set(line) == {"metric", "unit", "value", "median", "spread", "trial_s", "frames",
+                         "dtype", "name", "power_limit_w", "kernel_launches",
+                         "expected_launches", "route_max_u8", "route_mean_u8"}
+    assert line["metric"] == "sttn_auto_1080p_fps" and "vs_baseline" not in line
+    assert json.loads(json.dumps(line)) == line
+
+
+def test_check_output_catches_a_changed_pixel_outside_the_mask(scripts):
+    bench = scripts["bench_torch"]
+    mask = np.zeros((8, 10), np.uint8)
+    mask[5:7, 2:8] = 255
+    src = [np.full((8, 10, 3), 7, np.uint8)]
+    out = [src[0].copy()]
+    out[0][5:7, 2:8] = 9
+    bench.check_output(src, out, mask)
+    out[0][5, 9] = 0  # a band row, outside the mask
+    with pytest.raises(AssertionError, match="outside"):
+        bench.check_output(src, out, mask)
+
+
+def test_bench_parity_torch_smoke_config2(tmp_path):
+    """`bench_parity_torch.py --smoke --skip 1,3,4,5,6`: config 2 (sttn-auto,
+    user band) on the CPU writes every frame and exits 0."""
+    out = tmp_path / "results.json"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["TMPDIR"] = str(tmp_path)
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "bench_parity_torch.py"), "--smoke",
+         "--skip", "1,3,4,5,6", "--out", str(out)],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    (entry,) = json.loads(out.read_text())
+    assert entry["config"] == "config2" and entry["status"] == "ok", entry
+    assert entry["frames"] == 8  # frames in (--smoke: 8) == frames out
+    assert "clip: 8 frames" in proc.stdout and "device cpu" in proc.stdout

@@ -182,11 +182,16 @@ def test_cuda_without_gpu_raises():
         resolve_device("cuda")
 
 
+BENCH_SCRIPTS = ("bench_torch.py", os.path.join("scripts", "bench_modes_torch.py"),
+                 "bench_parity_torch.py")
+
+
 def test_port_never_imports_jax():
     """Every module of vsr_tpu_torch (``convert.__main__`` too: it does
     nothing on import), chip_smoke and kernel_faults imported in a fresh
-    process and `python -m vsr_tpu_torch --help` run there: nothing of jax,
-    flax or the JAX package vsr_tpu is loaded."""
+    process, `python -m vsr_tpu_torch --help` run there, and the three bench
+    scripts loaded by path with `--help` run: nothing of jax, flax or the JAX
+    package vsr_tpu is loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vsr_tpu_torch\n"
@@ -218,6 +223,17 @@ def test_port_never_imports_jax():
         "        'vsr_tpu_torch.train.sttn_trainer', 'vsr_tpu_torch.train.train_sttn',\n"
         "        'vsr_tpu_torch.train.propainter_trainer'} <= set(names)\n"
         "assert 'vsr_tpu_torch.convert.__main__' in sys.modules\n"
+        "import importlib.util, os\n"
+        f"for path in {list(BENCH_SCRIPTS)!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(os.path.basename(path)[:-3], path)\n"
+        "    module = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(module)\n"
+        "    try:\n"
+        "        module.main(['--help'])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, path\n"
+        "    else:\n"
+        "        raise AssertionError(path + ': --help returned')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'vsr_tpu'))\n"
         "print(len(names), bad)\n"
         "raise SystemExit(1 if bad else 0)\n"
@@ -232,12 +248,14 @@ def _port_sources():
     pkg = os.path.join(REPO, "vsr_tpu_torch")
     paths = [os.path.join(root, f) for root, _, files in os.walk(pkg)
              for f in files if f.endswith(".py")]
-    return sorted(paths) + [os.path.join(REPO, f) for f in ("chip_smoke.py", "kernel_faults.py")]
+    return sorted(paths) + [os.path.join(REPO, f)
+                            for f in ("chip_smoke.py", "kernel_faults.py", *BENCH_SCRIPTS)]
 
 
 def test_port_sources_do_not_import_vsr_tpu():
     """An ast scan: no `import vsr_tpu...` or `from vsr_tpu... import` in the
-    port, chip_smoke.py or kernel_faults.py, other than of vsr_tpu_torch (nor of jax / flax)."""
+    port, chip_smoke.py, kernel_faults.py or the bench scripts, other than of
+    vsr_tpu_torch (nor of jax / flax)."""
     import ast
 
     def foreign(name):

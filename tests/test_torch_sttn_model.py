@@ -108,3 +108,79 @@ def test_reference_keyed_state_dict_loads_strict(auto_pair):
     assert back.keys() == want.keys()
     for key in want:
         np.testing.assert_array_equal(np.asarray(back[key]), np.asarray(want[key]))
+
+
+# The decoder's two upsample inputs, (40, 256, 30, 160) and (40, 64, 60, 320)
+# at a TrainConfig() batch, cut in batch and channels: the spatial sizes set
+# the interpolation weights and stay.
+DECODER_SHAPES = [(2, 8, 30, 160), (2, 4, 60, 320)]
+
+
+def _upsample_inputs(shape):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(shape).astype(np.float32)
+    g = rng.standard_normal(shape[:2] + (2 * shape[2], 2 * shape[3])).astype(np.float32)
+    return x, g
+
+
+def _torch_grad(fn, x, g):
+    xt = torch.tensor(x, requires_grad=True)
+    y = fn(xt)
+    return y.detach(), torch.autograd.grad(y, xt, torch.tensor(g))[0]
+
+
+def _interpolate(x):
+    return torch.nn.functional.interpolate(x, scale_factor=2, mode="bilinear",
+                                           align_corners=True)
+
+
+@pytest.mark.parametrize("shape", DECODER_SHAPES, ids=["decoder-in", "decoder-mid"])
+def test_upsample_forward_is_interpolate_and_backward_its_gradient(shape):
+    """The forward is F.interpolate's bit for bit; the matmul backward equals
+    F.interpolate's autograd gradient within 1e-6 relative (fp32 sums in
+    another order)."""
+    from vsr_tpu_torch.ops.upsample import upsample_bilinear_2x_align_corners
+
+    x, g = _upsample_inputs(shape)
+    y, grad = _torch_grad(upsample_bilinear_2x_align_corners, x, g)
+    y_ref, grad_ref = _torch_grad(_interpolate, x, g)
+    assert torch.equal(y, y_ref)
+    rel = ((grad - grad_ref).abs().max() / grad_ref.abs().max()).item()
+    assert rel <= 1e-6, rel
+
+
+@pytest.mark.parametrize("shape", DECODER_SHAPES, ids=["decoder-in", "decoder-mid"])
+def test_upsample_backward_matches_jax_grad(shape):
+    """Against jax.grad of vsr_tpu's gather-and-lerp upsample (NHWC) on the
+    same input. vsr_tpu forms the source coordinate in fp64, PyTorch (whose
+    F.interpolate is the port's forward) in fp32, so the two ops already
+    differ by that rounding in the forward (1.1e-4 at the 60x320 input). The
+    backward is held to the activation-parity bound 1e-3 and to no more than
+    F.interpolate's own autograd gradient's distance from jax.grad, plus
+    fp32 sum rounding (1e-6 of the gradient's scale)."""
+    from vsr_tpu.ops.upsample import upsample_bilinear_2x_align_corners as jax_upsample
+    from vsr_tpu_torch.ops.upsample import upsample_bilinear_2x_align_corners
+
+    x, g = _upsample_inputs(shape)
+    _, vjp = jax.vjp(jax_upsample, jnp.asarray(x.transpose(0, 2, 3, 1)))
+    want = np.asarray(vjp(jnp.asarray(g.transpose(0, 2, 3, 1)))[0]).transpose(0, 3, 1, 2)
+    got = _torch_grad(upsample_bilinear_2x_align_corners, x, g)[1].numpy()
+    autograd = _torch_grad(_interpolate, x, g)[1].numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    err, autograd_err = np.abs(got - want).max(), np.abs(autograd - want).max()
+    assert err <= autograd_err + 1e-6 * np.abs(want).max(), (err, autograd_err)
+
+
+def test_upsample_interpolation_matrix_rows():
+    """Each output row's weights sum to 1 and reproduce F.interpolate along
+    one axis, including an axis of one pixel."""
+    from vsr_tpu_torch.ops.upsample import interpolation_matrix
+
+    for n_in, n_out in [(30, 60), (160, 320), (1, 4), (5, 1)]:
+        a = interpolation_matrix(n_in, n_out)
+        np.testing.assert_allclose(a.sum(axis=1), 1.0, atol=1e-6)
+        x = torch.randn(1, 1, n_in, 3)
+        want = torch.nn.functional.interpolate(x, size=(n_out, 3), mode="bilinear",
+                                               align_corners=True)
+        np.testing.assert_allclose(np.einsum("oi,ncij->ncoj", a, x.numpy()), want.numpy(),
+                                   rtol=0, atol=1e-6)
