@@ -15,6 +15,7 @@ compared, except dunder methods other than ``__init__``.
 import ast
 from pathlib import Path
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -12,6 +12,7 @@ import os
 import subprocess
 import sys
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import cv2
 import numpy as np
 import pytest
@@ -146,15 +147,29 @@ def test_check_output_catches_a_changed_pixel_outside_the_mask(scripts):
         bench.check_output(src, out, mask)
 
 
+# Runs a script as its own __main__, as `python SCRIPT ARGS...` would, with
+# sttn-auto's STTN narrowed (tests/torch_narrow.py).
+NARROW_STTN_MAIN = """
+import os, runpy, sys
+script = sys.argv[1]
+sys.argv = sys.argv[1:]
+sys.path.insert(0, os.path.dirname(script))
+from tests.torch_narrow import narrow_sttn
+narrow_sttn()
+runpy.run_path(script, run_name="__main__")
+"""
+
+
 def test_bench_parity_torch_smoke_config2(tmp_path):
     """`bench_parity_torch.py --smoke --skip 1,3,4,5,6`: config 2 (sttn-auto,
-    user band) on the CPU writes every frame and exits 0."""
+    user band) on the CPU writes every frame and exits 0 (the script in a
+    process of its own, with the narrow STTN: NARROW_STTN_MAIN)."""
     out = tmp_path / "results.json"
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["TMPDIR"] = str(tmp_path)
     proc = subprocess.run(
-        [sys.executable, os.path.join(REPO, "bench_parity_torch.py"), "--smoke",
-         "--skip", "1,3,4,5,6", "--out", str(out)],
+        [sys.executable, "-c", NARROW_STTN_MAIN, os.path.join(REPO, "bench_parity_torch.py"),
+         "--smoke", "--skip", "1,3,4,5,6", "--out", str(out)],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     (entry,) = json.loads(out.read_text())

@@ -8,6 +8,7 @@ exactly as the JAX package's converter followed by from_flax, and as the
 
 import sys
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

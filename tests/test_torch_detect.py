@@ -10,6 +10,7 @@ small video in both presets, equal dicts."""
 
 import re
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import cv2
 import numpy as np
 import pytest

@@ -15,6 +15,7 @@ imports no jax (the repo's conftest does, hence --noconftest):
 Here, without a card, the tests skip.
 """
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import pytest
 import torch
 

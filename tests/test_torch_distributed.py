@@ -31,6 +31,7 @@ import os
 import socket
 import time
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch
@@ -60,6 +61,9 @@ def _free_port() -> int:
 def _rank_main(rank, world, port, fn, args):
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    # Under xdist the rank already starts at one thread: it inherits
+    # OMP_NUM_THREADS from tests/torch_test_env.py. Alone, pytest leaves
+    # torch at the host's width, and the ranks still share the cores.
     torch.set_num_threads(1)
     from vsr_tpu_torch.parallel.distributed import init_distributed
 

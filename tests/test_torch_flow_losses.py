@@ -5,6 +5,7 @@ whose warp is the port's ops/grid_sample.flow_warp. The masks are random,
 so the smoothness terms see holes, and the flows smooth and a few pixels
 large, so the warp samples between pixels and outside the frame."""
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

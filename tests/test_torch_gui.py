@@ -17,6 +17,7 @@ import os
 import time
 import urllib.request
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import cv2
 import numpy as np
 import pytest

@@ -20,6 +20,7 @@ import json
 import os
 import re
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import pytest
 
 from vsr_tpu.gui import selection_model as jax_sm

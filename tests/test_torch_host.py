@@ -6,6 +6,7 @@ a seed with numpy."""
 import dataclasses
 import importlib
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 

@@ -9,6 +9,7 @@ logits conv included) loading strict into the port's module as the
 converter + from_flax route does. The JAX forward compiles once per shape
 (a module fixture)."""
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

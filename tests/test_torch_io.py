@@ -6,6 +6,7 @@ VideoWriter.frames_written and force_cv2, has_ffmpeg."""
 
 import os
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import cv2
 import numpy as np
 import pytest

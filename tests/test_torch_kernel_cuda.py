@@ -12,6 +12,7 @@ import copy
 import os
 import time
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,7 @@ lama_state_dict_from_flax, in fp32 on the CPU:
   1 uint8, outside the mask bit-identical to the input.
 """
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

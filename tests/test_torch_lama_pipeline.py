@@ -7,6 +7,7 @@ and VSR_LAMA_BUCKET=8, the settings the port's outputs equal."""
 
 import os
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import cv2
 import numpy as np
 import pytest

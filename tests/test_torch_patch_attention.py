@@ -3,6 +3,7 @@ package's (vsr_tpu/ops/patch_attention.py, upsample.py) on the same numpy
 inputs, through the kernel route (on the CPU: the kernel's plain version)
 and the dense route. Tolerance 1e-5 (fp32 both sides)."""
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

@@ -5,6 +5,7 @@ losses within 1e-5 relative, the losses' gradients to the prediction within
 1e-4 (the l1 criterion's in norm). The ProPainter GAN step with the LPIPS
 term: tests/test_torch_train_lpips.py."""
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,7 @@ repo's frame parity bound)."""
 
 import os
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import cv2
 import numpy as np
 

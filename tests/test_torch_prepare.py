@@ -10,6 +10,7 @@ import os
 import subprocess
 import sys
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ port's window-skip against its dense attention (bit for bit), the
 loaders, and the helpers' parity.
 """
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

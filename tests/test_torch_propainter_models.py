@@ -19,6 +19,7 @@ the from_flax converters, in fp32 on the CPU:
   init_random_ starts LayerNorm and the pooling kernel as flax does.
 """
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ package's on the same numpy inputs, in fp32 on the CPU:
   within 1e-5 of the JAX package's default (one-hot) lookup.
 """
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

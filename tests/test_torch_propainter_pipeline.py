@@ -6,6 +6,7 @@ tests/test_torch_propainter.py, the tiny LaMa of tests/test_lama.py), fp32
 on the CPU; vsr_tpu under VSR_PP_DYNAMIC_WINDOWS=1 and its exact-BGR, mod-8
 LaMa settings. Also the CLI in propainter mode, and its cuda default."""
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import cv2
 import numpy as np
 import pytest

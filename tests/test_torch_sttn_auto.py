@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import cv2
 import numpy as np
 import pytest

@@ -3,6 +3,7 @@
 with the flax params carried over by sttn_state_dict_from_flax. Tolerance
 1e-3 (the repo's activation-parity bound), fp32 both sides."""
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

@@ -11,15 +11,19 @@ import subprocess
 import sys
 import time
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import cv2
 import numpy as np
 import pytest
 
+from vsr_tpu_torch import tasks
 from vsr_tpu_torch.config import Config, InpaintMode
 from vsr_tpu_torch.tasks import Task, TaskOptions, TaskRunner, TaskStatus
 from vsr_tpu_torch.utils.process_manager import ProcessManager
 from vsr_tpu_torch.utils.remote_call import Command, RemoteCallChannel, RemoteCallClient
 from vsr_tpu_torch.utils.tracing import StageTimer, device_trace
+
+from tests.torch_narrow import narrow_sttn_worker
 
 
 class TestStageTimer:
@@ -115,10 +119,12 @@ class TestTaskModel:
         t2 = Task(path="/data/pic.png")
         assert t2.default_output_path() == "/data/no_sub/pic.png"
 
-    def test_task_runner_end_to_end(self, tmp_path):
+    def test_task_runner_end_to_end(self, tmp_path, monkeypatch):
         """A spawned worker on the CPU, tiny video through the zero-area
         passthrough: completed, progress 100, the output written, and the
-        worker's first log line names its device."""
+        worker's first log line names its device. The worker builds the
+        narrow STTN (tests/torch_narrow.py)."""
+        monkeypatch.setattr(tasks, "_worker", narrow_sttn_worker)
         video = _video(str(tmp_path / "v.mp4"))
         cfg = Config()
         cfg.inpaint_mode = InpaintMode.STTN_AUTO

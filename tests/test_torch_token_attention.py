@@ -6,6 +6,7 @@ on the card by tests/test_torch_kernel_cuda.py and chip_smoke.py."""
 
 import math
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

@@ -27,6 +27,7 @@ import os
 import types
 import zipfile
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import cv2
 import numpy as np
 import pytest

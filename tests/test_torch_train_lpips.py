@@ -4,6 +4,7 @@ on the CPU: the check of tests/test_torch_train_propainter.py, which runs
 the step without the term. A file of its own, so that each file's JAX
 compiles stay near half a minute."""
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 from tests.test_torch_train_propainter import check_gan_step, gan_setup  # noqa: F401
 
 

@@ -18,6 +18,7 @@ Each JAX step compiles once per module (fixtures).
 
 import types
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

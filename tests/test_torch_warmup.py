@@ -9,6 +9,7 @@ import io
 import json
 import urllib.error
 
+from tests import torch_test_env  # noqa: F401  (caps torch's threads)
 import pytest
 import torch
 
