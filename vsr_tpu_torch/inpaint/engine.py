@@ -38,6 +38,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from vsr_tpu_torch.utils import tracing
+
 MAX_OVERLAPS = 3  # a frame is covered by at most 3 windows (stride-5 windows span ±5)
 
 
@@ -273,29 +275,37 @@ class STTNWindowEngine:
             raise ValueError(f"masks {masks.shape} are not {(t_valid, h, w)}")
         cuda = self.device.type == "cuda"
 
-        host_in = self._pinned(frames, cuda)
-        host_masks = None
-        if masks is not None:
-            host_masks = self._pinned((masks > 0).astype(np.uint8), cuda)
+        with tracing.span("vsr.dispatch", frames=t_valid,
+                          padded=self.clip_len - t_valid) as dispatched:
+            with tracing.span("vsr.stage") as staged:
+                host_in = self._pinned(frames, cuda)
+                host_masks = None
+                if masks is not None:
+                    host_masks = self._pinned((masks > 0).astype(np.uint8), cuda)
 
-        idx, valid, _ = build_window_index(
-            t_valid, self.clip_len, self.stride, self.ref_length)
-        fwin, fslot, fcount = build_composite_index(t_valid, self.clip_len, self.stride)
-        index = [self._to_device(a) for a in (idx.astype(np.int64), valid,
-                                              fwin.astype(np.int64),
-                                              fslot.astype(np.int64), fcount)]
+                idx, valid, _ = build_window_index(
+                    t_valid, self.clip_len, self.stride, self.ref_length)
+                fwin, fslot, fcount = build_composite_index(t_valid, self.clip_len, self.stride)
+                index = [self._to_device(a) for a in (idx.astype(np.int64), valid,
+                                                      fwin.astype(np.int64),
+                                                      fslot.astype(np.int64), fcount)]
 
-        frames_dev = host_in.to(self.device, non_blocking=True)
-        masks_dev = None
-        if host_masks is not None:
-            masks_dev = host_masks.to(self.device, non_blocking=True)
-        out = self._chunk_step(frames_dev, *index, masks=masks_dev)
-        host_out = torch.empty(out.shape, dtype=torch.uint8, pin_memory=cuda)
-        host_out.copy_(out, non_blocking=True)
-        done = None
-        if cuda:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
+                frames_dev = host_in.to(self.device, non_blocking=True)
+                masks_dev = None
+                if host_masks is not None:
+                    masks_dev = host_masks.to(self.device, non_blocking=True)
+                h2d = host_in.nbytes + sum(t.nbytes for t in index) + (
+                    0 if host_masks is None else host_masks.nbytes)
+                staged.add(bytes=h2d)
+            dispatched.add(bytes=h2d)
+            with tracing.span("vsr.launch"):
+                out = self._chunk_step(frames_dev, *index, masks=masks_dev)
+                host_out = torch.empty(out.shape, dtype=torch.uint8, pin_memory=cuda)
+                host_out.copy_(out, non_blocking=True)
+                done = None
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(self.device))
         # the pinned inputs stay referenced until fetch: their copies may
         # still be in flight
         return host_out, done, t_valid, (host_in, host_masks)
@@ -303,8 +313,9 @@ class STTNWindowEngine:
     def fetch(self, handle) -> np.ndarray:
         """Wait for a dispatched chunk; returns [T', rows, W, 3] BGR uint8."""
         host_out, done, t_valid, _ = handle
-        if done is not None:
-            done.synchronize()
+        with tracing.span("vsr.fetch", bytes=host_out.nbytes):
+            if done is not None:
+                done.synchronize()
         return host_out.numpy()[:t_valid]
 
     def process_chunk(self, frames: np.ndarray,

@@ -24,6 +24,7 @@ from vsr_tpu_torch.masks.mask import binarize_mask
 from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
 from vsr_tpu_torch.models.sttn import STTN_AUTO_INPUT_SIZE, STTNGenerator
 from vsr_tpu_torch.parallel.mesh import default_inference_mesh, replicate
+from vsr_tpu_torch.utils import tracing
 from vsr_tpu_torch.utils.device import adaptive_clip_len, resolve_device
 
 
@@ -95,8 +96,9 @@ class STTNAutoInpainter:
         """Crop+resize a chunk directly into one preallocated [T, h, w, 3] buffer."""
         buf = np.empty((len(frames), self.model_input_height,
                         self.model_input_width, 3), np.uint8)
-        for j, f in enumerate(frames):
-            self._crop_and_resize(f, band, out=buf[j])
+        with tracing.span("vsr.crop_resize", frames=len(frames), bytes=buf.nbytes):
+            for j, f in enumerate(frames):
+                self._crop_and_resize(f, band, out=buf[j])
         return buf
 
     # ---- list-in/list-out contract ----
@@ -119,8 +121,9 @@ class STTNAutoInpainter:
             def drain(item):
                 start, handle = item
                 for j, comp in enumerate(engine.fetch(handle)):
-                    paste_band(out[start + j], comp, band, mask01,
-                               self.model_input_height, out_rows)
+                    with tracing.span("vsr.paste", frames=1):
+                        paste_band(out[start + j], comp, band, mask01,
+                                   self.model_input_height, out_rows)
 
             pending = []
             for s in range(0, t, clip):
@@ -150,6 +153,14 @@ class STTNAutoInpainter:
         Returns the number of frames written. While the device runs chunk i,
         the host pastes back and writes chunk i-1.
         """
+        with tracing.span("vsr.process_video") as whole:
+            written = self._process_video(reader, writer, input_mask, frame_count, size,
+                                          ab_sections, progress_cb, preview_cb)
+            whole.add(frames=written)
+        return written
+
+    def _process_video(self, reader, writer, input_mask, frame_count, size, ab_sections,
+                       progress_cb, preview_cb) -> int:
         W, H = size
         mask01 = binarize_mask(input_mask)
         bands = get_inpaint_area_by_mask(W, H, self._split_h(W), mask01)
@@ -158,62 +169,70 @@ class STTNAutoInpainter:
                      for band in bands]
         engines = [self._engine(clip, rows) for rows in band_rows]
 
-        def read_chunk():
+        def read_chunk(chunk):
             frames_hr: List[np.ndarray] = []
             in_section: List[bool] = []
             nonlocal frame_no
-            # cap at frame_count: the container's frame count can undercount
-            # and the writer/audio mux must stay in sync with it
-            while len(frames_hr) < clip and frame_no < frame_count:
-                ok, frame = reader.read()
-                if not ok:
-                    break
-                frames_hr.append(frame)
-                in_section.append(
-                    is_frame_number_in_ab_sections(frame_no, ab_sections))
-                frame_no += 1
+            with tracing.span("vsr.read", chunk) as read:
+                # cap at frame_count: the container's frame count can
+                # undercount and the writer/audio mux must stay in sync with it
+                while len(frames_hr) < clip and frame_no < frame_count:
+                    ok, frame = reader.read()
+                    if not ok:
+                        break
+                    frames_hr.append(frame)
+                    in_section.append(
+                        is_frame_number_in_ab_sections(frame_no, ab_sections))
+                    frame_no += 1
+                read.add(frames=len(frames_hr))
             return frames_hr, in_section
 
-        def dispatch_chunk(frames_hr, in_section):
+        def dispatch_chunk(chunk, frames_hr, in_section):
             proc_idx = [i for i, p in enumerate(in_section) if p]
             handles = []
-            if bands and proc_idx:
-                for band, engine in zip(bands, engines):
-                    scaled = self._stack_band(
-                        [frames_hr[i] for i in proc_idx], band)
-                    handles.append(engine.dispatch(scaled))
-            return frames_hr, proc_idx, handles
+            with tracing.span("vsr.submit", chunk):
+                if bands and proc_idx:
+                    for band, engine in zip(bands, engines):
+                        scaled = self._stack_band(
+                            [frames_hr[i] for i in proc_idx], band)
+                        handles.append(engine.dispatch(scaled))
+            return chunk, frames_hr, proc_idx, handles
 
-        def drain_chunk(frames_hr, proc_idx, handles) -> int:
-            comps_per_band = [engine.fetch(h)
-                              for engine, h in zip(engines, handles)]
-            proc_map = {i: j for j, i in enumerate(proc_idx)}
-            n = 0
-            for i, frame in enumerate(frames_hr):
-                original = frame.copy() if preview_cb else None
-                if i in proc_map and comps_per_band:
-                    for band, rows, comps in zip(bands, band_rows, comps_per_band):
-                        paste_band(frame, comps[proc_map[i]], band, mask01,
-                                   self.model_input_height, rows)
-                writer.write(frame)
-                n += 1
-                if progress_cb:
-                    progress_cb(1)
-                if preview_cb:
-                    preview_cb(original, frame)
+        def drain_chunk(chunk, frames_hr, proc_idx, handles) -> int:
+            with tracing.span("vsr.drain", chunk, frames=len(frames_hr)):
+                comps_per_band = [engine.fetch(h)
+                                  for engine, h in zip(engines, handles)]
+                proc_map = {i: j for j, i in enumerate(proc_idx)}
+                n = 0
+                for i, frame in enumerate(frames_hr):
+                    original = frame.copy() if preview_cb else None
+                    if i in proc_map and comps_per_band:
+                        for band, rows, comps in zip(bands, band_rows, comps_per_band):
+                            with tracing.span("vsr.paste", frames=1):
+                                paste_band(frame, comps[proc_map[i]], band, mask01,
+                                           self.model_input_height, rows)
+                    with tracing.span("vsr.write", frames=1):
+                        writer.write(frame)
+                    n += 1
+                    if progress_cb:
+                        progress_cb(1)
+                    if preview_cb:
+                        preview_cb(original, frame)
             return n
 
         written = 0
         frame_no = 0
+        chunk = 0  # chunk ids for the spans, from 0 in each call
         pending = None
-        while written + (len(pending[0]) if pending else 0) < frame_count:
-            frames_hr, in_section = read_chunk()
+        while written + (len(pending[1]) if pending else 0) < frame_count:
+            frames_hr, in_section = read_chunk(chunk)
             if not frames_hr:
                 break
-            current = dispatch_chunk(frames_hr, in_section)
+            current = dispatch_chunk(chunk, frames_hr, in_section)
             if pending is not None:
                 written += drain_chunk(*pending)
             pending = current
+            chunk += 1
             if len(frames_hr) < clip:
                 break  # reader exhausted
         if pending is not None:

@@ -27,6 +27,7 @@ from vsr_tpu_torch.inpaint.weights import load_sttn_weights
 from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
 from vsr_tpu_torch.models.sttn import STTN_DET_INPUT_SIZE, STTNGenerator
 from vsr_tpu_torch.parallel.mesh import default_inference_mesh, replicate
+from vsr_tpu_torch.utils import tracing
 from vsr_tpu_torch.utils.device import resolve_device
 
 
@@ -102,15 +103,18 @@ class STTNDetInpainter:
         mask01 = (mask > 0).astype(np.uint8)
         for band in bands:
             ymin, ymax = band[0], band[1]
-            scaled = np.stack(
-                [cv2.resize(f[ymin:ymax, :, :], size) for f in input_frames])
-            scaled_mask = cv2.resize(mask[ymin:ymax, :, :], size)
+            with tracing.span("vsr.crop_resize", frames=len(input_frames)) as cropped:
+                scaled = np.stack(
+                    [cv2.resize(f[ymin:ymax, :, :], size) for f in input_frames])
+                scaled_mask = cv2.resize(mask[ymin:ymax, :, :], size)
+                cropped.add(bytes=scaled.nbytes)
             binary = (scaled_mask > 0.5).astype(np.uint8)
             masks = np.repeat(binary[None], len(input_frames), axis=0)
             rows = band_out_rows(mask01, band, self.model_input_height)
             comps = self._inpaint_scaled(scaled, masks, rows)
             for j in range(len(out)):
-                paste_band(out[j], comps[j], band, mask01, self.model_input_height, rows)
+                with tracing.span("vsr.paste", frames=1):
+                    paste_band(out[j], comps[j], band, mask01, self.model_input_height, rows)
         return out
 
     def _inpaint_scaled(self, scaled: np.ndarray, masks: np.ndarray,

@@ -37,6 +37,7 @@ from vsr_tpu_torch.masks.intervals import (
     split_range_by_scene,
 )
 from vsr_tpu_torch.masks.mask import create_mask
+from vsr_tpu_torch.utils import tracing
 from vsr_tpu_torch.utils.common import IMAGE_EXTENSIONS, is_image_file  # noqa: F401
 from vsr_tpu_torch.utils.device import resolve_device
 
@@ -219,7 +220,7 @@ class SubtitleRemover:
     def _video_inpaint_mode(self, writer, model) -> None:
         """Detection-driven batch inpaint (ref main.py:260-333)."""
         self.append_output(tr.text("Main", "ProcessingStartFindingSubtitles"))
-        sub_list = self.detector.find_subtitle_frame_no(sub_remover=self)
+        sub_list = self._detect()
         self.append_output(tr.text("Main", "FinishedFindingSubtitles"))
         if not sub_list:
             raise RuntimeError(
@@ -266,13 +267,19 @@ class SubtitleRemover:
                     self.mask_size, coords, self.config.subtitle_area_deviation_pixel
                 )
                 for batch in batch_generator(frames, self.config.get_sttn_max_load_num()):
-                    inpainted = model(list(batch), mask)
+                    with tracing.span("vsr.inpaint_batch", frames=len(batch)):
+                        inpainted = model(list(batch), mask)
                     for src, out_frame in zip(batch, inpainted):
                         writer.write(out_frame)
                         self._preview(src, mask, out_frame)
                     self._progress(len(batch))
         finally:
             reader.release()
+
+    def _detect(self):
+        """The detector's pass over the video: {frame number: boxes}."""
+        with tracing.span("vsr.detect", frames=self.frame_count):
+            return self.detector.find_subtitle_frame_no(sub_remover=self)
 
     def _collect_mask_coords(self, sub_list, start: int, end: int):
         coords = []
@@ -294,7 +301,7 @@ class SubtitleRemover:
         from vsr_tpu_torch.scenes.content import get_scene_div_frame_no
 
         self.append_output(tr.text("Main", "ProcessingStartFindingSubtitles"))
-        sub_list = self.detector.find_subtitle_frame_no(sub_remover=self)
+        sub_list = self._detect()
         self.append_output(tr.text("Main", "FinishedFindingSubtitles"))
         if not sub_list:
             raise RuntimeError(
@@ -358,6 +365,12 @@ class SubtitleRemover:
 
     # ---- main entry ----
     def run(self) -> None:
+        """Process the input; with VSR_TRACE_DIR set, the run is profiled
+        and its spans exported (``utils.tracing.device_trace``)."""
+        with tracing.device_trace("run", log=self.append_output), tracing.span("vsr.run"):
+            self._run()
+
+    def _run(self) -> None:
         mode = self.config.inpaint_mode
         start_time = time.time()
         if not self.sub_areas:
@@ -418,10 +431,11 @@ class SubtitleRemover:
             raise
         else:
             writer.release()
-        self.is_successful_merged = merge_audio_to_video(
-            self.video_path, tmp.name, self.video_out_path,
-            log=self.append_output,
-        )
+        with tracing.span("vsr.mux"):
+            self.is_successful_merged = merge_audio_to_video(
+                self.video_path, tmp.name, self.video_out_path,
+                log=self.append_output,
+            )
         try:
             os.remove(tmp.name)
         except OSError:
