@@ -590,14 +590,12 @@ def phase_c(card, frames, mask, profile):
         log(f"[c] sttn-auto 1080p bf16 run {run + 1}: {fps[-1]:.2f} frames/s "
             f"({dt:.3f} s for {n} frames) on {card}")
     if profile:
-        from vsr_tpu_torch.inpaint import sttn_auto
-
         def run():
             return run_video(inpainter, frames, mask)
 
         profile_run(run, len(frames), card, "c", "chip_smoke_profile.txt")
         host_breakdown(run, len(frames), [
-            (inpainter, "_stack_band", "crop + resize"), (sttn_auto, "paste_band", "paste"),
+            (inpainter, "_stack_band", "crop + resize"), (inpainter, "_paste_chunk", "paste"),
             *engine_targets(inpainter)], "c")
     return launches, fps
 

@@ -24,6 +24,7 @@ from vsr_tpu.version import __version__ as jax_version
 from vsr_tpu_torch import cli, i18n, native
 from vsr_tpu_torch.config import Config, InpaintMode
 from vsr_tpu_torch.detect import boxes, postprocess, preprocess
+from vsr_tpu_torch.inpaint import paste
 from vsr_tpu_torch.masks import intervals, mask, solver
 from vsr_tpu_torch.version import __version__
 
@@ -258,6 +259,111 @@ def test_native_paste_band_blend_bit_identical(seed):
     native.paste_band_blend(got, comp, mask01, y0, band_h, threads=int(rng.integers(1, 4)))
     assert jax_native.paste_band_blend(want, comp, mask01, y0, band_h)
     np.testing.assert_array_equal(got, want)
+
+
+# The batched ops against the per-frame port ops and the JAX package's, for
+# every worker count: random shapes; composite slices [r0, r1) whose rows
+# outside fall under the mask (they read as zeros, as paste_band's
+# full-height buffer holds them); and the benchmark cell's geometry (1080p,
+# a 360-row band at y0 720, the 1364x140 mask at band rows 220-360, a
+# 640x120 model band and its out_rows slice).
+BATCH_NS = (1, 7, 50)
+WORKERS = range(1, 9)
+
+
+def _assert_same(got, want):
+    """Byte equality; numpy's report (slow on whole frames) only on failure."""
+    if got.shape != want.shape or not np.array_equal(got, want):
+        np.testing.assert_array_equal(got, want)
+
+
+def _rolled(base, n):
+    """n distinct frames from one (cheap to make again for the reference)."""
+    return [np.roll(base, 7 * j, axis=1) for j in range(n)]
+
+
+def _paste_geometry(case):
+    """(frame base, y0, band_h, mask [band_h, W], model_h, r0, r1, comp_w)."""
+    if case == "band_1080p":
+        H, W, y0, band_h, model_h, comp_w = 1080, 1920, 720, 360, 120, 640
+        full = np.zeros((H, W, 3), np.uint8)
+        full[y0 + 220 : y0 + 360, 278:1642] = 1
+        r0, r1 = paste.band_out_rows(full, (y0, H, 0, W), model_h)
+        assert 0 < r0 < r1 <= model_h
+        mask01 = np.ascontiguousarray(full[y0:H, :, 0])
+        rng = np.random.default_rng(500)
+        return rng.integers(0, 256, (H, W, 3), np.uint8), y0, band_h, mask01, model_h, r0, r1, comp_w
+    kind, seed = case.split("-")
+    rng = np.random.default_rng(510 + int(seed))
+    H, W = int(rng.integers(120, 300)), int(rng.integers(160, 480))
+    y0 = int(rng.integers(0, H // 2))
+    band_h = int(rng.integers(8, H - y0))
+    model_h, comp_w = int(rng.integers(6, 60)), int(rng.integers(8, 90))
+    mask01 = (rng.random((band_h, W)) < 0.5).astype(np.uint8)
+    if kind == "slice":  # a middle slice: the mask reaches past its support
+        r0 = int(rng.integers(1, model_h // 2))
+        r1 = int(rng.integers(r0 + 1, model_h))
+    else:
+        r0, r1 = 0, model_h
+    return rng.integers(0, 256, (H, W, 3), np.uint8), y0, band_h, mask01, model_h, r0, r1, comp_w
+
+
+@pytest.mark.parametrize("n", BATCH_NS)
+@pytest.mark.parametrize("case", ["random-0", "random-1", "slice-0", "slice-1", "band_1080p"])
+def test_native_paste_band_blend_batch_bit_identical(case, n):
+    """paste_band_blend_batch at 1-8 workers equals, byte for byte, the
+    per-frame port op and the JAX package's on the zero-filled full-height
+    composite; the frames' other rows stay as they were."""
+    base, y0, band_h, mask01, model_h, r0, r1, comp_w = _paste_geometry(case)
+    comps = np.random.default_rng(520 + n).integers(0, 256, (n, r1 - r0, comp_w, 3), np.uint8)
+    want = []  # the band rows of each frame after a per-frame paste
+    for j, frame in enumerate(_rolled(base, n)):
+        full = np.zeros((model_h, comp_w, 3), np.uint8)
+        full[r0:r1] = comps[j]
+        got, jax_got = frame.copy(), frame.copy()
+        native.paste_band_blend(got, full, mask01, y0, band_h)
+        assert jax_native.paste_band_blend(jax_got, full, mask01, y0, band_h)
+        _assert_same(got, jax_got)
+        want.append(got[y0 : y0 + band_h].copy())
+    frames = [f.copy() for f in _rolled(base, n)]
+    for workers in WORKERS:
+        for frame, band in zip(frames, _rolled(base[y0 : y0 + band_h], n)):
+            frame[y0 : y0 + band_h] = band
+        k = native.paste_band_blend_batch(frames, comps, mask01, y0, band_h, r0, model_h,
+                                          threads=workers)
+        assert k == min(workers, native.DEFAULT_THREADS, n)
+        for frame, band in zip(frames, want):
+            _assert_same(frame[y0 : y0 + band_h], band)
+    for frame, original in zip(frames, _rolled(base, n)):
+        _assert_same(frame[:y0], original[:y0])
+        _assert_same(frame[y0 + band_h :], original[y0 + band_h :])
+
+
+@pytest.mark.parametrize("n", BATCH_NS)
+@pytest.mark.parametrize("case", ["random-0", "random-1", "band_1080p"])
+def test_native_crop_resize_batch_bit_identical(case, n):
+    """crop_resize_batch at 1-8 workers equals, byte for byte, the
+    per-frame port op and the JAX package's."""
+    if case == "band_1080p":
+        rng = np.random.default_rng(530)
+        base, y0, crop_h, out_w, out_h = (rng.integers(0, 256, (1080, 1920, 3), np.uint8),
+                                          720, 360, 640, 120)
+    else:
+        rng = np.random.default_rng(540 + int(case[-1]))
+        H, W = int(rng.integers(120, 300)), int(rng.integers(160, 480))
+        base = rng.integers(0, 256, (H, W, 3), np.uint8)
+        y0 = int(rng.integers(0, H // 2))
+        crop_h = int(rng.integers(8, H - y0))
+        out_w, out_h = int(rng.integers(8, 200)), int(rng.integers(6, 80))
+    frames = [np.ascontiguousarray(f) for f in _rolled(base, n)]
+    want = np.stack([native.crop_resize(f, y0, crop_h, out_w, out_h) for f in frames])
+    for j, f in enumerate(frames):
+        _assert_same(want[j], jax_native.crop_resize(f, y0, crop_h, out_w, out_h))
+    for workers in WORKERS:
+        out = np.zeros((n, out_h, out_w, 3), np.uint8)
+        assert native.crop_resize_batch(frames, y0, crop_h, out, threads=workers) == min(
+            workers, native.DEFAULT_THREADS, n)
+        _assert_same(out, want)
 
 
 def test_native_rejects_non_contiguous():

@@ -99,6 +99,60 @@ def test_inpainter_matches_jax(entry, tmp_path, monkeypatch):
     assert np.abs(got - src).max() > 0  # the band was rewritten
 
 
+def test_process_video_pastes_chunks_as_per_frame_paste(monkeypatch):
+    """process_video's one batched paste per chunk and band, against the
+    per-frame ``paste_band`` of the composites the engine returned: the
+    written frames are byte-identical. Two bands, three chunks (the last
+    short), frames 6-8 and 20-22 outside the AB sections (written as read);
+    ``preview_cb`` gets each frame as read and as written."""
+    from vsr_tpu_torch.inpaint import sttn_auto as tmod
+    from vsr_tpu_torch.inpaint.engine import STTNWindowEngine
+    from vsr_tpu_torch.inpaint.paste import band_out_rows, paste_band
+    from vsr_tpu_torch.masks.mask import binarize_mask, create_mask
+    from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
+    from vsr_tpu_torch.models.sttn import STTNGenerator
+
+    monkeypatch.setattr(tmod, "STTNGenerator", lambda *, variant, use_kernel: STTNGenerator(
+        variant=variant, use_kernel=use_kernel, **TINY))
+    inpainter = tmod.STTNAutoInpainter(None, tiny_config(), input_size=(64, 48), device="cpu")
+    fetched = []
+    fetch = STTNWindowEngine.fetch
+    monkeypatch.setattr(STTNWindowEngine, "fetch",
+                        lambda self, handle: fetched.append(fetch(self, handle).copy())
+                        or fetched[-1])
+    frames = _frames(25)
+    mask = create_mask((120, 160), [(40, 120, 62, 72), (30, 130, 100, 108)])
+    sections = [range(0, 6), range(9, 20), range(23, 25)]
+    previews, writer = [], _ListWriter()
+    n = inpainter.process_video(_ListReader(frames), writer, mask, 25, (160, 120),
+                                ab_sections=sections,
+                                preview_cb=lambda a, b: previews.append((a.copy(), b.copy())))
+    assert n == 25 and len(writer.frames) == 25
+
+    mask01 = binarize_mask(mask)
+    bands = get_inpaint_area_by_mask(160, 120, inpainter._split_h(160), mask01)
+    assert len(bands) == 2
+    rows = [band_out_rows(mask01, band, 48) for band in bands]
+    clip = inpainter.clip_gap
+    want = [f.copy() for f in frames]
+    for start in range(0, 25, clip):
+        proc = [i for i in range(start, min(start + clip, 25))
+                if any(i in section for section in sections)]
+        for band, band_rows in zip(bands, rows):
+            comps = fetched.pop(0)
+            assert comps.shape == (len(proc), band_rows[1] - band_rows[0], 64, 3)
+            for j, i in enumerate(proc):
+                paste_band(want[i], comps[j], band, mask01, 48, band_rows)
+    assert not fetched
+    for i in range(25):
+        np.testing.assert_array_equal(writer.frames[i], want[i])
+        np.testing.assert_array_equal(previews[i][0], frames[i])
+        np.testing.assert_array_equal(previews[i][1], want[i])
+    for i in (6, 7, 8, 20, 21, 22):
+        np.testing.assert_array_equal(writer.frames[i], frames[i])
+    assert not np.array_equal(writer.frames[0], frames[0])
+
+
 def test_cli_end_to_end(tmp_path, monkeypatch):
     """`python -m vsr_tpu_torch ... --device cpu` (its main(), in process, so
     the STTN can be shrunk): frame count and size kept, band rewritten."""

@@ -19,6 +19,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from tests import torch_narrow
+from vsr_tpu_torch import native
 from vsr_tpu_torch.config import Config
 from vsr_tpu_torch.inpaint import sttn_auto, sttn_det
 from vsr_tpu_torch.inpaint.engine import MAX_OVERLAPS
@@ -137,8 +138,9 @@ def _named(spans, name):
 
 def test_span_tree_per_chunk(auto):
     """(b) Under a profiler: the tree of each chunk, its chunk id on every
-    span below it, the last chunk's frames and padding, and the H2D and D2H
-    bytes worked out from the shapes."""
+    span below it, the last chunk's frames and padding, the H2D and D2H
+    bytes worked out from the shapes, and the native pool's workers on the
+    chunk's one crop and one paste."""
     spans = auto.spans
     root, = _named(spans, "vsr.process_video")
     assert root is spans[0] and root.parent is None and root.chunk is None
@@ -170,17 +172,20 @@ def test_span_tree_per_chunk(auto):
             assert s.parent.name == parent and s.chunk == s.parent.chunk, name
             assert s.start_ns >= s.parent.start_ns and s.end_ns <= s.parent.end_ns, name
     for k, size in enumerate(sizes):
+        workers = min(native.DEFAULT_THREADS, size)
+        assert workers >= 1
         crop, = [s for s in _named(spans, "vsr.crop_resize") if s.chunk == k]
-        assert crop.counts == {"frames": size, "bytes": size * h * w * 3}
+        assert crop.counts == {"frames": size, "bytes": size * h * w * 3, "workers": workers}
         dispatch, = [s for s in _named(spans, "vsr.dispatch") if s.chunk == k]
         assert dispatch.counts == {"frames": size, "padded": CLIP - size, "bytes": h2d}
         stage, = [s for s in _named(spans, "vsr.stage") if s.chunk == k]
         assert stage.counts == {"bytes": h2d}
         fetch, = [s for s in _named(spans, "vsr.fetch") if s.chunk == k]
         assert fetch.counts == {"bytes": d2h}
-        for name in ("vsr.paste", "vsr.write"):
-            per_frame = [s for s in _named(spans, name) if s.chunk == k]
-            assert [s.counts for s in per_frame] == [{"frames": 1}] * size, name
+        paste, = [s for s in _named(spans, "vsr.paste") if s.chunk == k]  # one band
+        assert paste.counts == {"frames": size, "workers": workers}
+        per_frame = [s for s in _named(spans, "vsr.write") if s.chunk == k]
+        assert [s.counts for s in per_frame] == [{"frames": 1}] * size
     assert sizes[-1] < CLIP  # the last chunk is padded
 
 

@@ -7,7 +7,7 @@ ops (which raise if they cannot be built, rather than falling back to cv2).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -55,3 +55,24 @@ def paste_band(
         comp = full
     mask_region = np.ascontiguousarray(mask01[ymin:ymax, :, 0])
     native.paste_band_blend(frame, np.ascontiguousarray(comp), mask_region, ymin, band_h)
+
+
+def paste_band_chunk(
+    frames: Sequence[np.ndarray],
+    comps: np.ndarray,
+    band,
+    mask01: np.ndarray,
+    model_h: int,
+    out_rows: Optional[Tuple[int, int]] = None,
+) -> int:
+    """``paste_band`` of ``comps[j]`` into ``frames[j]`` for a whole chunk
+    (``comps``: [N, rows, w, 3], as ``STTNWindowEngine.fetch`` returns it),
+    in one native call that shares the frames among the pool's workers.
+    The rows outside ``out_rows`` read as zeros, as ``paste_band``'s
+    full-height buffer holds them, so each frame comes out bit for bit as
+    ``paste_band`` leaves it. Returns the workers that took part."""
+    ymin, ymax, _, _ = band
+    r0 = out_rows[0] if out_rows is not None and comps.shape[1] != model_h else 0
+    mask_region = np.ascontiguousarray(mask01[ymin:ymax, :, 0])
+    return native.paste_band_blend_batch(
+        frames, np.ascontiguousarray(comps), mask_region, ymin, ymax - ymin, r0, model_h)

@@ -1,5 +1,12 @@
-"""Native host ops: ctypes bindings over vsr_host_ops.cpp (a copy of
-``vsr_tpu/native``, so the port pastes bit for bit as the JAX package does).
+"""Native host ops: ctypes bindings over vsr_host_ops.cpp (the per-pixel
+arithmetic of ``vsr_tpu/native``, so the port pastes bit for bit as the JAX
+package does).
+
+Parallel work runs on the library's one persistent pool of min(8, cores)
+workers (the calling thread among them), made on first use: ``threads``
+is the most of them a call may take. The per-frame ops share a frame's rows
+among them; the ``*_batch`` ops take a whole chunk in one call and share its
+frames, and return how many workers took part.
 
 g++ builds the shared library at first use into ``vsr_tpu_torch/build/``
 (listed in ``.gitignore``) and rebuilds it when the source is newer. A failed
@@ -13,7 +20,7 @@ import ctypes
 import os
 import subprocess
 import threading
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -27,6 +34,7 @@ CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-pthread
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
+# the native pool's size: the most workers any call runs on
 DEFAULT_THREADS = min(8, os.cpu_count() or 1)
 
 
@@ -61,6 +69,13 @@ def get_lib() -> ctypes.CDLL:
             i32 = ctypes.c_int
             lib.paste_band_blend.argtypes = [u8p, i32, u8p, i32, i32, u8p, i32, i32, i32, i32]
             lib.crop_resize.argtypes = [u8p, i32, i32, i32, i32, u8p, i32, i32, i32]
+            ptrs = ctypes.POINTER(ctypes.c_void_p)
+            lib.paste_band_blend_batch.argtypes = [
+                ptrs, i32, i32, u8p, i32, i32, i32, i32, u8p, i32, i32, i32, i32]
+            lib.paste_band_blend_batch.restype = i32
+            lib.crop_resize_batch.argtypes = [
+                ptrs, i32, i32, i32, i32, i32, u8p, i32, i32, i32]
+            lib.crop_resize_batch.restype = i32
             _lib = lib
     return _lib
 
@@ -73,6 +88,16 @@ def _check(**arrays: np.ndarray) -> None:
     for name, arr in arrays.items():
         if arr.dtype != np.uint8 or not arr.flags.c_contiguous:
             raise ValueError(f"{name} must be a C-contiguous uint8 array")
+
+
+def _frame_ptrs(frames: Sequence[np.ndarray], width: int, rows: int):
+    """The frames' data pointers as a C array, after checking that each is a
+    C-contiguous uint8 [H, width, 3] image with at least ``rows`` rows."""
+    for j, frame in enumerate(frames):
+        _check(**{f"frames[{j}]": frame})
+        if frame.ndim != 3 or frame.shape[1:] != (width, 3) or frame.shape[0] < rows:
+            raise ValueError(f"frames[{j}] is {frame.shape}, expected [>={rows}, {width}, 3]")
+    return (ctypes.c_void_p * len(frames))(*[f.ctypes.data for f in frames])
 
 
 def paste_band_blend(
@@ -112,3 +137,52 @@ def crop_resize(
     W = frame.shape[1]
     lib.crop_resize(_ptr(frame), W, y0, crop_h, W, _ptr(out), out_h, out_w, threads)
     return out
+
+
+def paste_band_blend_batch(
+    frames: Sequence[np.ndarray],  # N x [H, W, 3] uint8, modified in place
+    comps: np.ndarray,             # [N, rows, comp_w, 3] uint8
+    mask01: np.ndarray,            # [band_h, W] uint8 {0,1}
+    y0: int,
+    band_h: int,
+    r0: int = 0,
+    model_h: Optional[int] = None,
+    threads: int = DEFAULT_THREADS,
+) -> int:
+    """``paste_band_blend`` of ``comps[j]`` into ``frames[j]`` for a whole
+    chunk in one call, a frame per worker. ``comps`` holds rows
+    [r0, r0 + rows) of composites ``model_h`` rows high (default r0 + rows);
+    their other rows read as zeros. Returns the workers that took part."""
+    _check(comps=comps, mask01=mask01)
+    n = len(frames)
+    if comps.ndim != 4 or comps.shape[0] != n or comps.shape[3] != 3:
+        raise ValueError(f"comps is {comps.shape}, expected [{n}, rows, w, 3]")
+    if mask01.ndim != 2 or mask01.shape[0] != band_h:
+        raise ValueError(f"mask01 is {mask01.shape}, expected [{band_h}, W]")
+    rows, W = comps.shape[1], mask01.shape[1]
+    model_h = r0 + rows if model_h is None else model_h
+    if not 0 <= r0 <= r0 + rows <= model_h:
+        raise ValueError(f"rows [{r0}, {r0 + rows}) do not fit a {model_h}-row composite")
+    ptrs = _frame_ptrs(frames, W, y0 + band_h)
+    return get_lib().paste_band_blend_batch(
+        ptrs, n, W, _ptr(comps), rows, r0, model_h, comps.shape[2],
+        _ptr(mask01), y0, band_h, W, threads)
+
+
+def crop_resize_batch(
+    frames: Sequence[np.ndarray],  # N x [H, W, 3] uint8
+    y0: int,
+    crop_h: int,
+    out: np.ndarray,               # [N, out_h, out_w, 3] uint8
+    threads: int = DEFAULT_THREADS,
+) -> int:
+    """``crop_resize`` of ``frames[j]`` into ``out[j]`` for a whole chunk in
+    one call, a frame per worker. Returns the workers that took part."""
+    _check(out=out)
+    n = len(frames)
+    if out.ndim != 4 or out.shape[0] != n or out.shape[3] != 3:
+        raise ValueError(f"out is {out.shape}, expected [{n}, out_h, out_w, 3]")
+    W = frames[0].shape[1] if n else 0
+    ptrs = _frame_ptrs(frames, W, y0 + crop_h)
+    return get_lib().crop_resize_batch(
+        ptrs, n, W, y0, crop_h, W, _ptr(out), out.shape[1], out.shape[2], threads)
