@@ -11,6 +11,11 @@ driver), runs the same cell on the same seed and is compared in the same
 way. Each run prints one JSON line ``{"seed", "side", "checks"}``; the last
 line holds, for each check, the largest reading of the program and the
 smallest of the control. The benchmark's own runs never run the control.
+
+Where a configuration's control is the program's own lower-precision path
+(``sttn-auto-fp32``'s is the bf16 program), read that path as its own cell
+on the same seeds with ``--control-seeds 0``: ``sttn_auto.band_1080p``
+computes the same frames with the same weights in bf16.
 """
 
 from __future__ import annotations

@@ -11,9 +11,9 @@ import tempfile
 
 import torch
 
-from perfbench import generator
+from perfbench import counts, generator
 from perfbench.reference import pipeline as ref
-from perfbench.weights import make_netg, write_checkpoint
+from perfbench.weights import make_netg, reference_model, write_checkpoint
 
 LAST_FRAME = 1 << 62  # process_video's frame_count: the reader ends the stream
 
@@ -98,14 +98,30 @@ class ReferenceProgram:
 def install_control(driver, quant: str = "fp8_e4m3") -> None:
     """Puts the reference computed in ``quant`` in the driver's program's
     place, on the same seeded weights."""
-    from perfbench.weights import reference_model
-
-    model = reference_model(driver.cfg, quant).to(driver.device).eval()
+    model = driver.reference_model(driver.cfg, quant).to(driver.device).eval()
     model.load_state_dict(driver.netg, strict=True)
     driver.program = ReferenceProgram(model, driver.cfg, driver.device)
 
 
-class Driver:
+class STTNFamily:
+    """What the harness asks of a driver about its model family, for both
+    STTN modes: the plain reference (``reference/sttn.py``), the
+    token-attention kernel's launches and the model FLOPs (``counts.py``)."""
+
+    @staticmethod
+    def reference_model(cfg: dict, quant: str = "float32"):
+        return reference_model(cfg, quant)
+
+    @staticmethod
+    def expected_launches(cfg: dict, work) -> int:
+        return counts.token_attention_launches(work, cfg)
+
+    @staticmethod
+    def model_flops(cfg: dict, work) -> int:
+        return sum(bands * counts.chunk_flops(frames, cfg) for frames, _, bands in work)
+
+
+class Driver(STTNFamily):
     def __init__(self, cfg: dict, mix: dict, seed: int, device):
         from vsr_tpu_torch.inpaint.sttn_auto import STTNAutoInpainter
         from vsr_tpu_torch.masks.mask import create_mask

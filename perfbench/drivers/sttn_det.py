@@ -16,6 +16,7 @@ import torch
 
 from perfbench import generator
 from perfbench.drivers.sttn_auto import (  # noqa: F401 (install_control: the control)
+    STTNFamily,
     common_spans,
     install_control,
     kernel_launches,
@@ -33,7 +34,7 @@ def schedule_lengths(start_end, max_load: int):
                    for b in batch_generator(range(s, e + 1), max_load)}, reverse=True)
 
 
-class Driver:
+class Driver(STTNFamily):
     unit_of = None  # units are batches, named by the loop (Writer.begin_unit)
 
     def __init__(self, cfg: dict, mix: dict, seed: int, device):

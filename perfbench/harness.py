@@ -16,11 +16,28 @@ file of its own, found by name:
 A driver module holds a ``Driver(cfg, mix, seed, device)`` that builds the
 program and the traffic, and has ``pool``, ``frame_shape``, ``unit_of``,
 ``warm()``, ``window(reader, writer)``, ``launches()``, ``host_spans()`` (the program's host steps the traced run labels),
-``chunk_work(raw)`` (the chunks the window's return value stands for, as
-``(frames, chunk length, bands)``, worked out after the window closed),
-``free()``, and a static ``reference_unit(cfg, mix, seed, pool, model,
-first, length, taken, device)`` (the reference's frames and mask for a
-sampled unit, or None where the reference's schedule forms no such unit).
+``chunk_work(raw)`` (the work the window's return value stands for, worked
+out after the window closed, in the form the family's static methods take;
+STTN's: a ``(frames, chunk length, bands)`` per chunk),
+``free()``, a state dict ``netg`` (the seeded weights both sides run),
+and these static methods, which hold all that is particular to the
+configuration's model family:
+
+* ``reference_unit(cfg, mix, seed, pool, model, first, length, taken,
+  device)``: the reference's frames and mask for a sampled unit, or None
+  where the reference's schedule forms no such unit;
+* ``reference_model(cfg, quant="float32")``: the plain reference module
+  (one module holding every network of the family), into which ``netg``
+  loads strictly;
+* ``expected_launches(cfg, work)``: the launches of the family's
+  hand-written kernels that the schedule of ``work`` (``chunk_work``'s
+  value) needs on a card;
+* ``model_flops(cfg, work)``: the useful model FLOPs of ``work``, from
+  shapes alone, or None.
+
+A new family is a new driver file with its own reference and counts beside
+it in the benchmark's folder; the harness reads no key of a configuration
+but ``driver``, ``limits`` and what it hands to these methods.
 """
 
 from __future__ import annotations
@@ -36,7 +53,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from perfbench import counts, generator
+from perfbench import generator
 
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
@@ -402,8 +419,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
     if cuda:
         torch.cuda.empty_cache()
 
+    family = cell.driver.Driver
     ctx = SimpleNamespace(cfg=cell.cfg, mix=cell.mix, setup_s=setup_s, window_s=window_s,
-                          frames=writer.returned, work=work, device=device,
+                          frames=writer.returned,
+                          model_flops=family.model_flops(cell.cfg, work), device=device,
                           card=card_of(device), recorders={r.attr: r for r in recorders})
     metrics = {}
     breakdown = None
@@ -430,8 +449,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
     # the route's count, logged beside the schedule's and left out of
     # `correct`: a kernel replayed from a captured graph, or merged into
     # another hand-written one, is not counted by the port's counter
-    expected = counts.token_attention_launches(work, cell.cfg) if cuda else 0
-    log(f"card {power_limit_w() or dev['kind']}; token-attention launches {launches}, "
+    expected = family.expected_launches(cell.cfg, work) if cuda else 0
+    log(f"card {power_limit_w() or dev['kind']}; hand-kernel launches {launches}, "
         f"{expected} by the schedule" + ("" if launches == expected else " (they differ)"))
     result = {"correct": bool(correct), "attempted": reader.taken, "failed": failed,
               "metrics": metrics, "device": dev}
@@ -445,20 +464,22 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
 def check_outputs(cell: Cell, writer: Writer, taken: int, pool, netg, seed: int, device):
     """The sampled units against the plain reference (float32, TF32 off, on
     the weights ``netg``) on ``device``: {check: {"value", "limit"}} and
-    whether every check holds."""
+    whether every check holds. TF32 is switched back as it was afterwards,
+    so that a later run in the same process computes as a fresh one would."""
     import torch
 
-    from perfbench.weights import reference_model
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg, units = cell.cfg, writer.sample()
-    model = reference_model(cfg).to(device).eval()
-    model.load_state_dict(netg, strict=True)
     driver = cell.driver.Driver
+    model = driver.reference_model(cfg).to(device).eval()
+    model.load_state_dict(netg, strict=True)
     t0 = time.perf_counter()
-    readings = compare_units(units, lambda u: driver.reference_unit(
-        cfg, cell.mix, seed, pool, model, u.first, u.length, taken, device), device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        readings = compare_units(units, lambda u: driver.reference_unit(
+            cfg, cell.mix, seed, pool, model, u.first, u.length, taken, device), device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     log(f"reference over {sum(u.length for u in units)} frames of {len(units)} units in "
         f"{time.perf_counter() - t0:.1f} s")
     limits = cfg.get("limits", {})
@@ -473,13 +494,14 @@ def check_outputs(cell: Cell, writer: Writer, taken: int, pool, netg, seed: int,
 
 def compare_units(units: List[Unit], reference, device) -> Dict[str, float]:
     """Over ``units``: the widest and the mean uint8 gap between the
-    program's frames and the reference's inside the mask, pixels changed
-    outside it, and units the reference's schedule does not form.
+    program's frames and the reference's inside the mask, the share (in %)
+    of the values inside it whose gap exceeds 2, pixels changed outside it,
+    and units the reference's schedule does not form.
     ``reference(unit)`` gives (frames [n, H, W, 3] uint8 on ``device``, mask)
     or None."""
     import torch
 
-    widest, gap_sum, gap_n, outside, mismatched = 0, 0, 0, 0, 0
+    widest, gap_sum, over2, gap_n, outside, mismatched = 0, 0, 0, 0, 0, 0
     for unit in units:
         ref = reference(unit)
         if ref is None:
@@ -492,6 +514,8 @@ def compare_units(units: List[Unit], reference, device) -> Dict[str, float]:
         widest = max(widest, int(diff.max()))
         outside += int(((diff > 0).any(dim=-1) & ~inside).sum())
         gap_sum += int(diff[:, inside].sum())
+        over2 += int((diff[:, inside] > 2).sum())
         gap_n += int(inside.sum()) * diff.shape[0] * diff.shape[-1]
     return {"max_gap_u8": widest, "mean_gap_u8": gap_sum / max(gap_n, 1),
+            "gap_over2_pct": 100.0 * over2 / max(gap_n, 1),
             "outside_changed_px": outside, "unit_mismatch": mismatched}

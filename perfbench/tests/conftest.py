@@ -67,7 +67,7 @@ def edit_json(path: str, **changes) -> None:
 @pytest.fixture
 def tiny_root(tmp_path):
     root = copy_benchmark(str(tmp_path))
-    for name in ("sttn-auto", "sttn-det"):
+    for name in ("sttn-auto", "sttn-auto-fp32", "sttn-det"):
         edit_json(os.path.join(root, "perfbench", "configs", f"{name}.json"),
                   limits=TINY_LIMITS, **TINY_MODEL)
     edit_json(os.path.join(root, "perfbench", "traffic", "band_1080p.json"), **TINY_FRAMES)

@@ -35,7 +35,7 @@ def test_benchmark_keys_names_and_units():
                          ("workloads", {"name", "config", "traffic", "chips", "why"}),
                          ("end_to_end", {"name", "unit", "better", "bound", "source"}),
                          ("per_layer", {"name", "unit", "better", "source", "layer",
-                                        "moves"})):
+                                        "moves", "workloads"})):
         names = [e["name"] for e in b[key]]
         assert len(names) == len(set(names))
         for e in b[key]:
@@ -50,8 +50,10 @@ def test_benchmark_keys_names_and_units():
         assert m["source"] in ("host_clock", "device_trace") and 0.01 <= m["bound"] <= 0.25
     e2e = {m["name"] for m in b["end_to_end"]}
     assert "setup_s" in e2e
+    cells = {w["name"] for w in b["workloads"]}
     for m in b["per_layer"]:
         assert m["moves"] in e2e
+        assert set(m.get("workloads", cells)) <= cells and m.get("workloads", cells)
     for w in b["workloads"]:
         assert NAME.match(w["config"]) and NAME.match(w["traffic"]) and w["chips"] in (1, 4)
 
@@ -85,8 +87,8 @@ def test_new_files_are_found_by_name(tmp_path):
               if os.path.isfile(p)}
     pb = os.path.join(root, "perfbench")
     with open(os.path.join(pb, "configs", "sttn-auto.json")) as f:
-        cfg = dict(json.load(f), name="sttn-auto-fp32", dtype="float32")
-    with open(os.path.join(pb, "configs", "sttn-auto-fp32.json"), "w") as f:
+        cfg = dict(json.load(f), name="sttn-auto-stride10", neighbor_stride=10)
+    with open(os.path.join(pb, "configs", "sttn-auto-stride10.json"), "w") as f:
         json.dump(cfg, f)
     with open(os.path.join(pb, "traffic", "band_720p.json"), "w") as f:
         json.dump({"generator": "band_stream", "width": 1280, "height": 720}, f)
@@ -95,17 +97,18 @@ def test_new_files_are_found_by_name(tmp_path):
                 "def read(ctx):\n    return ctx.frames\n")
     with open(os.path.join(root, "BENCHMARK.json")) as f:
         b = json.load(f)
-    b["configs"].append({"name": "sttn-auto-fp32", "source": "s",
-                         "file": "perfbench/configs/sttn-auto-fp32.json", "reduced": [],
+    b["configs"].append({"name": "sttn-auto-stride10", "source": "s",
+                         "file": "perfbench/configs/sttn-auto-stride10.json", "reduced": [],
                          "why": "w"})
-    b["workloads"].append({"name": "sttn_auto.fp32_band_720p", "config": "sttn-auto-fp32",
-                           "traffic": "band_720p", "chips": 1, "why": "w"})
+    b["workloads"].append({"name": "sttn_auto.stride10_band_720p",
+                           "config": "sttn-auto-stride10", "traffic": "band_720p", "chips": 1,
+                           "why": "w"})
     b["per_layer"].append({"name": "frames_seen", "unit": "frames", "better": "higher",
                            "source": "program_counter", "layer": "device", "moves": "fps"})
     with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
         json.dump(b, f)
-    cell = harness.load_cell("sttn_auto.fp32_band_720p", root)
-    assert cell.cfg["dtype"] == "float32" and cell.mix["width"] == 1280
+    cell = harness.load_cell("sttn_auto.stride10_band_720p", root)
+    assert cell.cfg["neighbor_stride"] == 10 and cell.mix["width"] == 1280
     assert hasattr(cell.driver, "Driver")
     assert [m["name"] for m in cell.per_layer][-1] == "frames_seen"
     reader = harness.metric_reader(cell, cell.per_layer[-1], True)

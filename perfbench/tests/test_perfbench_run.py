@@ -10,11 +10,15 @@ model-size frames come back as they went in), half of the batch left out
 answer altered where it is produced (one frame of each chunk inverted). One
 card holds every cell, so no exchange between cards can be left out."""
 
+import json
+import os
+
 import numpy as np
 import pytest
+import torch
 
 from perfbench import harness
-from perfbench.tests.conftest import DET_CELLS
+from perfbench.tests.conftest import DET_CELLS, ROOT, edit_json
 
 SEED = 2**33 + 7
 CELLS = ["sttn_auto.band_1080p"] + DET_CELLS
@@ -92,6 +96,36 @@ def test_control_is_not_correct(tiny_root, narrow, cell):
     result = run(tiny_root, cell, before_window=cell_mod.install_control, seconds=2.0)
     assert result["attempted"] > 0 and result["failed"] == 0
     assert not result["correct"], result["checks"]
+
+
+@pytest.mark.parametrize("dtype,correct", [("float32", True), ("bfloat16", False)])
+def test_fp32_cell_fails_the_program_in_bf16(tiny_root, narrow, dtype, correct):
+    """The float32 cell's control, under the configuration's own limits:
+    the program's own bf16 path, the precision below the float32 the
+    configuration states."""
+    with open(os.path.join(ROOT, "perfbench", "configs", "sttn-auto-fp32.json")) as f:
+        limits = json.load(f)["limits"]
+    path = os.path.join(tiny_root, "perfbench", "configs", "sttn-auto-fp32.json")
+    edit_json(path, dtype=dtype, limits=limits)
+    result = run(tiny_root, "sttn_auto.fp32_band_1080p")
+    assert result["attempted"] > 0 and result["failed"] == 0
+    assert set(result["checks"]) == set(limits)
+    assert result["correct"] == correct, result["checks"]
+
+
+def test_compare_units_reads_the_gaps():
+    """Gaps of 0, 1, 3 and 10 (and two of 0) inside a two-pixel mask, one
+    pixel changed outside it, and a unit the reference does not form."""
+    want = torch.zeros((1, 2, 2, 3), dtype=torch.uint8)
+    mask = np.array([[1, 1], [0, 0]], np.uint8)
+    got = np.zeros((2, 2, 3), np.uint8)
+    got[0, 0], got[0, 1], got[1, 1] = [0, 1, 3], [10, 0, 0], [1, 0, 0]
+    formed, unformed = harness.Unit(0, 0), harness.Unit(1, 1)
+    formed.frames = unformed.frames = [got]
+    readings = harness.compare_units(
+        [formed, unformed], lambda u: (want, mask) if u is formed else None, "cpu")
+    assert readings == {"max_gap_u8": 10, "mean_gap_u8": 14 / 6, "gap_over2_pct": 100 * 2 / 6,
+                        "outside_changed_px": 1, "unit_mismatch": 1}
 
 
 def test_traced_run_reads_a_window(tiny_root, narrow):
