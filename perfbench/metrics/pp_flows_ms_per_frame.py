@@ -1,0 +1,16 @@
+"""pp_flows_ms_per_frame: device milliseconds a returned frame in the
+program's ``vsr.pp.flows`` spans, RAFT's bidirectional flows of every
+consecutive pair (``_compute_flows``): the time between CUDA events at the
+span's edges, recorded while the traced run's profiler records. Layer:
+ProPainter stages; it moves fps. None off a card and where the program
+records no ProPainter spans (``perfbench/pp_spans.py``)."""
+
+from perfbench.pp_spans import ms_per_frame
+
+LAYER = "ProPainter stages"
+UNIT = "ms/frame"
+MOVES = "fps"
+
+
+def read(ctx):
+    return ms_per_frame(ctx, ["vsr.pp.flows"], device=True)

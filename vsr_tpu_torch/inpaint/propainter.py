@@ -36,6 +36,15 @@ elsewhere the composite is the source (prediction * mask + source * (1 -
 mask), and the blend of two equal uint8 values is that value). ``__call__``
 crops native-resolution full-width bands rounded to multiples of 8.
 
+Spans (``utils.tracing``, recorded only while a torch profiler records):
+``vsr.pp.clip`` around each ``__call__`` (frames, band pixels), over
+``vsr.pp.prepare`` (the frame copies, the crop, the mask dilation, the
+H2D), the four device stages ``vsr.pp.flows`` (pairs, pair chunks),
+``vsr.pp.complete`` (sub-videos), ``vsr.pp.propagate`` and
+``vsr.pp.sweep`` (encode and windows: windows, attention windows,
+attention windows whose masked branch ran), each carrying its device time
+on a card, and ``vsr.pp.finish`` (the D2H and the paste).
+
 The JAX package's default pads every window to one static shape to bound
 XLA compiles; this port keeps the reference's ragged windows (the JAX
 package's VSR_PP_DYNAMIC_WINDOWS=1 path), so it has neither the padding nor
@@ -62,6 +71,7 @@ from vsr_tpu_torch.models.propainter.flow_completion import RecurrentFlowComplet
 from vsr_tpu_torch.models.propainter.generator import ProPainterGenerator, image_propagation
 from vsr_tpu_torch.models.propainter.raft import ENCODE_CHUNK, RAFT, raft_bi_flows
 from vsr_tpu_torch.parallel.mesh import replicate
+from vsr_tpu_torch.utils import tracing
 from vsr_tpu_torch.utils.device import items_per_chunk, resolve_device
 
 
@@ -156,14 +166,18 @@ class PropainterInpainter:
         self.replicas = replicate(self.generator, mesh) if mesh else None
 
     # ---- stages ----
-    def _compute_flows(self, frames_n: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _compute_flows(self, frames_n: torch.Tensor,
+                       span=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """frames_n [T, 3, H, W] in [-1, 1] -> (flows_f, flows_b), each
-        [T-1, 2, H, W]: flow i is frame i -> i+1, and i+1 -> i."""
+        [T-1, 2, H, W]: flow i is frame i -> i+1, and i+1 -> i. ``span``:
+        a tracing span that counts the pairs and their chunks."""
         T, _, H, W = frames_n.shape
         # both directions of a chunk go in one call: 2 pyramids a pair, in at
         # most 40% of the free memory (the rest for the encodings, the
         # lookups, the update block and the allocator's fragments)
         chunk = items_per_chunk(self.device, T - 1, 2 * raft_pair_bytes(H, W), fraction=0.4)
+        if span is not None:
+            span.add(pairs=T - 1, pair_chunks=len(range(0, T - 1, chunk)))
         flows_f, flows_b = raft_bi_flows(self.raft, frames_n[None], pair_chunk=chunk)
         return flows_f[0], flows_b[0]
 
@@ -273,7 +287,8 @@ class PropainterInpainter:
         """Equally sized BGR uint8 frames and an HxW{x1} mask -> the
         inpainted BGR uint8 frames. H and W must be multiples of 8 (the band
         solver's multiple=8 sees to it)."""
-        dilated = dilate_mask(mask, self.mask_dilation)
+        with tracing.span("vsr.pp.prepare"):
+            dilated = dilate_mask(mask, self.mask_dilation)
         return self._inpaint_with_masks(frames_bgr, dilated, dilated)
 
     @staticmethod
@@ -282,6 +297,13 @@ class PropainterInpainter:
         if len(rows) == 0:
             return None
         return int(rows[0]), int(rows[-1]) + 1
+
+    def _attention_windows(self, H: int, W: int) -> int:
+        """Attention windows of a frame's token grid at band size H x W (the
+        /4 encoding, the 7x7 stride-3 soft split, ceil window partition)."""
+        wh, ww = self.generator.window_size
+        fh, fw = (H // 4 - 1) // 3 + 1, (W // 4 - 1) // 3 + 1
+        return -(-fh // wh) * -(-fw // ww)
 
     def _masked_window_set(self, mask2d: np.ndarray) -> Optional[np.ndarray]:
         """The attention windows that hold mask, for a mask that is the same
@@ -320,34 +342,46 @@ class PropainterInpainter:
             return [f.copy() for f in frames_bgr]
         T = len(frames_bgr)
         dev = self.device
-        bgr = torch.from_numpy(np.stack(frames_bgr)).to(dev)
-        rgb = bgr.flip(-1).permute(0, 3, 1, 2).contiguous()  # [T, 3, H, W] uint8
-        del bgr
-        H, W = rgb.shape[-2:]
-        frames_n = rgb.float() / 255.0 * 2.0 - 1.0
-        flow_masks = torch.from_numpy(np.asarray(flow_mask, np.float32)).to(dev)
-        flow_masks = flow_masks[None, None].expand(T, 1, H, W)
-        hole = torch.from_numpy(np.asarray(mask_dilated, np.float32)).to(dev)[None]
-        masks = hole[None].expand(T, 1, H, W)
+        with tracing.span("vsr.pp.prepare", frames=T):
+            bgr = torch.from_numpy(np.stack(frames_bgr)).to(dev)
+            rgb = bgr.flip(-1).permute(0, 3, 1, 2).contiguous()  # [T, 3, H, W] uint8
+            del bgr
+            H, W = rgb.shape[-2:]
+            frames_n = rgb.float() / 255.0 * 2.0 - 1.0
+            flow_masks = torch.from_numpy(np.asarray(flow_mask, np.float32)).to(dev)
+            flow_masks = flow_masks[None, None].expand(T, 1, H, W)
+            hole = torch.from_numpy(np.asarray(mask_dilated, np.float32)).to(dev)[None]
+            masks = hole[None].expand(T, 1, H, W)
 
-        flows_f, flows_b = self._compute_flows(frames_n)
-        comp_f, comp_b = self._complete_flows(flows_f, flows_b, flow_masks)
-        del flows_f, flows_b
-        updated_frames, updated_masks = self._propagate_images(frames_n, masks, comp_f, comp_b)
-        del frames_n
-        enc_all = self._encode_clip(updated_frames, masks, updated_masks)
-        del updated_frames
-        mw = self._masked_window_set(mask_dilated) if window_skip else None
-        mw = None if mw is None else torch.from_numpy(mw).to(dev)
-        comp = self._sweep_windows(enc_all, comp_f, comp_b, masks, updated_masks, rgb, hole > 0,
-                                   rows, mw)
-        band = comp.flip(1).permute(0, 2, 3, 1).cpu().numpy()  # the stage's one D2H, BGR
-        r0, r1 = rows
-        out = []
-        for j, frame in enumerate(frames_bgr):
-            f = frame.copy()
-            f[r0:r1] = band[j]
-            out.append(f)
+        with tracing.device_span("vsr.pp.flows", dev) as flows:
+            flows_f, flows_b = self._compute_flows(frames_n, flows)
+        with tracing.device_span("vsr.pp.complete", dev,
+                                 subvideos=len(range(0, T - 1, self.sub_video_length))):
+            comp_f, comp_b = self._complete_flows(flows_f, flows_b, flow_masks)
+            del flows_f, flows_b
+        with tracing.device_span("vsr.pp.propagate", dev):
+            updated_frames, updated_masks = self._propagate_images(frames_n, masks, comp_f,
+                                                                   comp_b)
+            del frames_n
+        with tracing.device_span("vsr.pp.sweep", dev) as sweep:
+            enc_all = self._encode_clip(updated_frames, masks, updated_masks)
+            del updated_frames
+            mw = self._masked_window_set(mask_dilated) if window_skip else None
+            attention_windows = self._attention_windows(H, W)
+            sweep.add(windows=len(self._windows(T)), attention_windows=attention_windows,
+                      masked_windows=attention_windows if mw is None else len(mw))
+            mw = None if mw is None else torch.from_numpy(mw).to(dev)
+            comp = self._sweep_windows(enc_all, comp_f, comp_b, masks, updated_masks, rgb,
+                                       hole > 0, rows, mw)
+        with tracing.span("vsr.pp.finish", frames=T):
+            band = comp.flip(1).permute(0, 2, 3, 1).cpu().numpy()  # the stage's one D2H, BGR
+            tracing.resolve_device_times()
+            r0, r1 = rows
+            out = []
+            for j, frame in enumerate(frames_bgr):
+                f = frame.copy()
+                f[r0:r1] = band[j]
+                out.append(f)
         return out
 
     # ---- video outpainting (ref extrapolation :80-118) ----
@@ -378,11 +412,15 @@ class PropainterInpainter:
         if mask.ndim == 2:
             mask = mask[:, :, None]
         H, W = mask.shape[:2]
-        bands = get_inpaint_area_by_mask(W, H, int(W * 3 / 16), mask, multiple=8)
-        out = [f.copy() for f in input_frames]
-        for ymin, ymax, xmin, xmax in bands:
-            comps = self.inpaint([f[ymin:ymax, xmin:xmax] for f in out],
-                                 mask[ymin:ymax, xmin:xmax, 0])
-            for j in range(len(out)):
-                out[j][ymin:ymax, xmin:xmax] = comps[j]
+        with tracing.span("vsr.pp.clip", frames=len(input_frames)) as clip:
+            with tracing.span("vsr.pp.prepare"):
+                bands = get_inpaint_area_by_mask(W, H, int(W * 3 / 16), mask, multiple=8)
+                out = [f.copy() for f in input_frames]
+            for ymin, ymax, xmin, xmax in bands:
+                clip.add(band_px=(ymax - ymin) * (xmax - xmin))
+                comps = self.inpaint([f[ymin:ymax, xmin:xmax] for f in out],
+                                     mask[ymin:ymax, xmin:xmax, 0])
+                with tracing.span("vsr.pp.finish"):
+                    for j in range(len(out)):
+                        out[j][ymin:ymax, xmin:xmax] = comps[j]
         return out

@@ -7,6 +7,14 @@ operator's trace exporter.
   also opens a ``torch.profiler.record_function`` of the same name, so the
   step shows in the profiler's trace. Otherwise it is one check of the
   profiler's state and nothing else: no record, no clock read.
+* ``device_span(name, device, chunk=None, **counts)`` — a span that, on a
+  CUDA device and only while a profiler records, also records a CUDA event
+  on the device's current stream at its opening and at its closing, so
+  that it carries the device time of the work enqueued while it was open;
+  ``resolve_device_times()`` turns the events of the spans closed since
+  its last call into ``counts["device_ns"]`` once the device has done that
+  work (after a synchronising copy; it adds no synchronisation of its
+  own). Otherwise it is ``span``.
 * ``spans()`` — the spans recorded since the last outermost span opened
   (one that opened while no other span was open in any thread): one run.
   Times are ``time.time_ns()``, the Unix-nanosecond epoch of the
@@ -115,6 +123,58 @@ def span(name: str, chunk: Optional[int] = None, **counts: int):
     if not _profiler_enabled():
         return _OFF
     return _Recording(name, chunk, counts)
+
+
+class _DeviceRecording(_Recording):
+    """An open span that also records a CUDA event at each of its edges."""
+
+    __slots__ = ("_stream", "_start")
+
+    def __init__(self, name: str, chunk: Optional[int], counts: Dict[str, int],
+                 device: torch.device) -> None:
+        super().__init__(name, chunk, counts)
+        self._stream = torch.cuda.current_stream(device)
+
+    def __enter__(self) -> Span:
+        span = super().__enter__()
+        self._start = torch.cuda.Event(enable_timing=True)
+        self._start.record(self._stream)
+        return span
+
+    def __exit__(self, *exc) -> None:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(self._stream)
+        _pending.append((self.span, self._start, end))
+        super().__exit__(*exc)
+
+
+# (span, start event, end event) of the device spans not yet resolved
+_pending: List[tuple] = []
+
+
+def device_span(name: str, device, chunk: Optional[int] = None, **counts: int):
+    """``span`` that also times, on a CUDA ``device``, the device work
+    enqueued while it is open (see the module's docstring). Without a
+    profiler recording it is the same one check as ``span``."""
+    if not _profiler_enabled():
+        return _OFF
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _Recording(name, chunk, counts)
+    return _DeviceRecording(name, chunk, counts, device)
+
+
+def resolve_device_times() -> None:
+    """Sets ``counts["device_ns"]`` of every device span closed since the
+    last call whose closing event the device has reached (``Event.query``,
+    which does not wait); the others stay pending."""
+    still = []
+    for span, start, end in _pending:
+        if end.query():
+            span.counts["device_ns"] = int(round(start.elapsed_time(end) * 1e6))
+        else:
+            still.append((span, start, end))
+    _pending[:] = still
 
 
 def spans() -> List[Span]:
