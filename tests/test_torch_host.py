@@ -366,6 +366,75 @@ def test_native_crop_resize_batch_bit_identical(case, n):
         _assert_same(out, want)
 
 
+def _window_geometry(case):
+    """(H, W, y0, x0, h, w) of a window in odd-sized frames: a random one,
+    one on the top rows, one on the bottom rows, the whole frame (rows 0
+    to H) and one of no rows."""
+    rng = np.random.default_rng(560 + len(case))
+    H, W = 2 * int(rng.integers(20, 60)) + 1, 2 * int(rng.integers(30, 90)) + 1
+    x0 = 2 * int(rng.integers(0, 10)) + 1
+    w = 2 * int(rng.integers(1, (W - x0) // 2)) + 1
+    h = int(rng.integers(1, H))
+    return {"random": (H, W, int(rng.integers(1, H - h)), x0, h, w),
+            "top": (H, W, 0, x0, h, w),
+            "bottom": (H, W, H - h, x0, h, w),
+            "whole": (H, W, 0, 0, H, W),
+            "no_rows": (H, W, int(rng.integers(0, H)), x0, 0, w)}[case]
+
+
+@pytest.mark.parametrize("n", BATCH_NS)
+@pytest.mark.parametrize("case", ["random", "top", "bottom", "whole", "no_rows"])
+def test_native_crop_and_compose_batch(case, n):
+    """crop_batch and compose_rows_batch at 1-8 workers against numpy
+    slicing: the crop of a window, and each frame with that window taken
+    from the rows (into new frames, and in place); the sources stay as
+    they were."""
+    H, W, y0, x0, h, w = _window_geometry(case)
+    rng = np.random.default_rng(570 + n)
+    frames = [rng.integers(0, 256, (H, W, 3), np.uint8) for _ in range(n)]
+    rows = rng.integers(0, 256, (n, h, w, 3), np.uint8)
+    before = [f.copy() for f in frames]
+    want = []
+    for f, r in zip(frames, rows):
+        g = f.copy()
+        g[y0:y0 + h, x0:x0 + w] = r
+        want.append(g)
+    for workers in WORKERS:
+        took = min(workers, native.DEFAULT_THREADS, n)
+        crops = np.zeros((n, h, w, 3), np.uint8)
+        assert native.crop_batch(frames, y0, x0, crops, threads=workers) == took
+        _assert_same(crops, np.stack([f[y0:y0 + h, x0:x0 + w] for f in frames]))
+        out = [np.full_like(f, 7) for f in frames]
+        assert native.compose_rows_batch(frames, out, rows, y0, x0, threads=workers) == took
+        _assert_same(np.stack(out), np.stack(want))
+        _assert_same(np.stack(frames), np.stack(before))
+        same = [f.copy() for f in frames]
+        assert native.compose_rows_batch(same, same, rows, y0, x0, threads=workers) == took
+        _assert_same(np.stack(same), np.stack(want))
+
+
+def test_native_crop_and_compose_check_their_arguments():
+    """A window that leaves the frames, a stack of the wrong length, a
+    destination of another shape or one that overlaps its source raise."""
+    frames = [np.zeros((20, 30, 3), np.uint8) for _ in range(2)]
+    rows = np.zeros((2, 4, 10, 3), np.uint8)
+    dsts = [np.zeros((20, 30, 3), np.uint8) for _ in range(2)]
+    with pytest.raises(ValueError, match="does not fit"):
+        native.crop_batch(frames, 0, 25, rows.copy())
+    with pytest.raises(ValueError, match="frames"):
+        native.crop_batch(frames, 17, 0, rows.copy())
+    with pytest.raises(ValueError, match="rows"):
+        native.compose_rows_batch(frames, dsts, rows[:1], 0, 0)
+    with pytest.raises(ValueError, match="destinations"):
+        native.compose_rows_batch(frames, dsts[:1], rows, 0, 0)
+    with pytest.raises(ValueError, match="expected"):
+        native.compose_rows_batch(frames, [dsts[0], dsts[1][:10]], rows, 0, 0)
+    with pytest.raises(ValueError, match="overlaps"):
+        native.compose_rows_batch(frames, [frames[0][::-1], dsts[1]], rows, 0, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        native.compose_rows_batch(frames, [dsts[0], dsts[1].astype(np.int16)], rows, 0, 0)
+
+
 def test_native_rejects_non_contiguous():
     frame = np.zeros((64, 80, 3), np.uint8)
     with pytest.raises(ValueError, match="contiguous"):

@@ -6,9 +6,11 @@ on the CPU:
   shared no-op object and record nothing;
 * under a profiler, ``device_span`` records as ``span`` does, and on the
   CPU carries no device time;
-* one ``__call__`` of a narrow inpainter under a profiler records
-  ``vsr.pp.clip`` over the six stage spans with their counts, and returns
-  the frames it returns without one;
+* a ``__call__`` of a narrow inpainter under a profiler records
+  ``vsr.pp.clip`` over the six stage spans with their counts (the staging
+  buffers made on the first clip and reused on the second, the pool
+  workers that cropped and composed), and returns the frames it returns
+  without one;
 * importing the ProPainter mode and running one ``__call__`` leaves torch's
   global settings (TF32, cuDNN's autotuner and determinism, the float32
   matmul precision, the default dtype) as they were.
@@ -25,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from tests.test_torch_propainter_reference import CFG, call_frames, port_inpainter
 from perfbench.weights_propainter import make_weights
+from vsr_tpu_torch import native
 from vsr_tpu_torch.utils import tracing
 
 REPO = Path(__file__).resolve().parent.parent
@@ -55,24 +58,36 @@ def test_device_span_on_cpu_records_as_span():
 
 
 def test_call_records_the_clip_and_its_stages(tmp_path):
+    """Two traced clips and an untraced one of the same frames: the same
+    bytes; each traced clip's spans and counts, the staging buffers made
+    on the first clip (``staged`` 0) and reused on the second (1), and the
+    pool workers that cropped and composed."""
     port = port_inpainter(make_weights(CFG, 7, "cpu"), str(tmp_path))
     frames, mask = call_frames()
+    runs = []
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU]):
+            traced = port([f.copy() for f in frames], mask)
+        runs.append((traced, list(tracing.spans())))
     plain = port([f.copy() for f in frames], mask)
-    with profile(activities=[ProfilerActivity.CPU]):
-        traced = port([f.copy() for f in frames], mask)
-    assert all(np.array_equal(a, b) for a, b in zip(plain, traced))
-    spans = tracing.spans()
-    clip = spans[0]
-    assert clip.name == "vsr.pp.clip" and clip.parent is None
-    assert clip.counts == {"frames": 10, "band_px": 40 * 216}
-    assert {s.name for s in spans[1:]} == set(STAGES)
-    assert all(s.parent is clip or s.parent.parent is clip for s in spans[1:])
-    by_name = {s.name: s for s in spans}
-    assert by_name["vsr.pp.flows"].counts == {"pairs": 9, "pair_chunks": 1}
-    assert by_name["vsr.pp.complete"].counts == {"subvideos": 2}
-    sweep = by_name["vsr.pp.sweep"].counts
-    assert sweep["windows"] == 5 and 0 < sweep["masked_windows"] <= sweep["attention_windows"]
-    assert all("device_ns" not in s.counts for s in spans)  # no card
+    workers = min(native.DEFAULT_THREADS, 10)
+    for staged, (traced, spans) in enumerate(runs):
+        assert all(np.array_equal(a, b) for a, b in zip(plain, traced))
+        clip = spans[0]
+        assert clip.name == "vsr.pp.clip" and clip.parent is None
+        assert clip.counts == {"frames": 10, "band_px": 40 * 216}
+        assert {s.name for s in spans[1:]} == set(STAGES)
+        assert all(s.parent is clip or s.parent.parent is clip for s in spans[1:])
+        by_name = {s.name: s for s in spans}
+        assert by_name["vsr.pp.flows"].counts == {"pairs": 9, "pair_chunks": 1}
+        assert by_name["vsr.pp.complete"].counts == {"subvideos": 2}
+        sweep = by_name["vsr.pp.sweep"].counts
+        assert sweep["windows"] == 5 and 0 < sweep["masked_windows"] <= sweep["attention_windows"]
+        assert [s.counts for s in spans if s.name == "vsr.pp.prepare" and s.counts] == [
+            {"frames": 10, "workers": workers, "staged": staged}]
+        assert [s.counts for s in spans if s.name == "vsr.pp.finish"] == [
+            {"frames": 10, "workers": workers}]
+        assert all("device_ns" not in s.counts for s in spans)  # no card
 
 
 STATE = """

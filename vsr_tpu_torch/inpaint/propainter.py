@@ -36,14 +36,26 @@ elsewhere the composite is the source (prediction * mask + source * (1 -
 mask), and the blend of two equal uint8 values is that value). ``__call__``
 crops native-resolution full-width bands rounded to multiples of 8.
 
+``__call__``'s host path is persistent and batched: a mask's bands, dilated
+masks, rows, masked windows and device masks are made on its first clip
+and kept (``MASKS_KEPT`` masks, by their bytes); each band's crops go into
+one persistent host buffer (pinned on a card) in one native call on the
+host pool and reach the device by one asynchronous H2D; the returned rows
+come back by one D2H into a second persistent buffer; one native call then
+writes each output frame once (rows outside the returned ones from the
+input frame). The buffers grow to the largest clip seen and are re-made
+only then. ``inpaint()`` and ``outpaint()`` keep the plain numpy route.
+
 Spans (``utils.tracing``, recorded only while a torch profiler records):
 ``vsr.pp.clip`` around each ``__call__`` (frames, band pixels), over
-``vsr.pp.prepare`` (the frame copies, the crop, the mask dilation, the
-H2D), the four device stages ``vsr.pp.flows`` (pairs, pair chunks),
+``vsr.pp.prepare`` (the band plans; per band the crop, the H2D, with the
+pool workers that cropped and ``staged`` 1 where both buffers were reused),
+the four device stages ``vsr.pp.flows`` (pairs, pair chunks),
 ``vsr.pp.complete`` (sub-videos), ``vsr.pp.propagate`` and
 ``vsr.pp.sweep`` (encode and windows: windows, attention windows,
 attention windows whose masked branch ran), each carrying its device time
-on a card, and ``vsr.pp.finish`` (the D2H and the paste).
+on a card, and ``vsr.pp.finish`` (the D2H and the compose, with the pool
+workers that composed).
 
 The JAX package's default pads every window to one static shape to bound
 XLA compiles; this port keeps the reference's ragged windows (the JAX
@@ -53,13 +65,15 @@ the frame-validity masks that made boundary windows differ.
 
 from __future__ import annotations
 
+import math
 import os
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import scipy.ndimage
 import torch
 
+from vsr_tpu_torch import native
 from vsr_tpu_torch.config import Config
 from vsr_tpu_torch.inpaint.weights import (
     load_flow_completion_weights,
@@ -121,6 +135,19 @@ def raft_pair_bytes(height: int, width: int) -> float:
     return n * n * 4 * 1.34
 
 
+# the masks whose band plans an inpainter keeps (a run of frames under one
+# box set reuses its mask for every clip)
+MASKS_KEPT = 4
+
+
+class _Band(NamedTuple):
+    """One band of a mask, as every clip under that mask needs it."""
+    box: Tuple[int, int, int, int]       # ymin, ymax, xmin, xmax in the frame
+    rows: Optional[Tuple[int, int]]      # the dilated mask's rows in the band
+    hole: torch.Tensor                   # [h, w] float32 dilated mask, on the device
+    masked_windows: Optional[torch.Tensor]  # _masked_window_set, on the device
+
+
 def _halo_chunks(length: int, sub: int, pad: int):
     """(start, end, keep_from, keep_to) of chunks of ``sub`` items with
     ``pad`` items of halo on each side, clipped to [0, length)."""
@@ -164,6 +191,12 @@ class PropainterInpainter:
         # the window sweep's generators, one per mesh device (None: the
         # generator alone)
         self.replicas = replicate(self.generator, mesh) if mesh else None
+        # __call__'s band plans by mask, and its persistent host staging
+        # (pinned on a card): the clip's band crops in, its returned rows out
+        self._plans: Dict[tuple, List[_Band]] = {}
+        self._host_in: Optional[torch.Tensor] = None
+        self._host_out: Optional[torch.Tensor] = None
+        self._h2d_done: Optional[torch.cuda.Event] = None
 
     # ---- stages ----
     def _compute_flows(self, frames_n: torch.Tensor,
@@ -329,29 +362,23 @@ class PropainterInpainter:
             return None
         return idx
 
-    @torch.inference_mode()
-    def _inpaint_with_masks(self, frames_bgr, flow_mask, mask_dilated,
-                            window_skip: bool = True) -> List[np.ndarray]:
-        """The staged pipeline with an explicit (flow mask, frame mask) pair,
-        both HxW and the same for every frame: inpaint() passes the dilated
-        subtitle mask twice, outpaint() a flow mask with an overlap margin.
-        ``window_skip`` False runs every attention window's both branches
-        (the dense path, for comparison)."""
-        rows = self._mask_rows(mask_dilated)
-        if rows is None:
-            return [f.copy() for f in frames_bgr]
-        T = len(frames_bgr)
+    def _rgb(self, bgr: torch.Tensor) -> torch.Tensor:
+        """[T, H, W, 3] BGR uint8 on the device -> [T, 3, H, W] RGB uint8."""
+        return bgr.flip(-1).permute(0, 3, 1, 2).contiguous()
+
+    def _stages(self, rgb: torch.Tensor, flow_mask: torch.Tensor, hole: torch.Tensor,
+                rows: Tuple[int, int], masked_windows: Optional[torch.Tensor]) -> torch.Tensor:
+        """The four device stages of one clip: rgb [T, 3, H, W] uint8 RGB,
+        the flow and frame masks [H, W] float32 (the same for every frame)
+        and the masked attention windows (None: all run both branches) on
+        the device -> the composite's rows [r0, r1), [T, 3, r1 - r0, W]
+        uint8 RGB on the device."""
+        T, _, H, W = rgb.shape
         dev = self.device
-        with tracing.span("vsr.pp.prepare", frames=T):
-            bgr = torch.from_numpy(np.stack(frames_bgr)).to(dev)
-            rgb = bgr.flip(-1).permute(0, 3, 1, 2).contiguous()  # [T, 3, H, W] uint8
-            del bgr
-            H, W = rgb.shape[-2:]
-            frames_n = rgb.float() / 255.0 * 2.0 - 1.0
-            flow_masks = torch.from_numpy(np.asarray(flow_mask, np.float32)).to(dev)
-            flow_masks = flow_masks[None, None].expand(T, 1, H, W)
-            hole = torch.from_numpy(np.asarray(mask_dilated, np.float32)).to(dev)[None]
-            masks = hole[None].expand(T, 1, H, W)
+        frames_n = rgb.float() / 255.0 * 2.0 - 1.0
+        flow_masks = flow_mask[None, None].expand(T, 1, H, W)
+        hole = hole[None]
+        masks = hole[None].expand(T, 1, H, W)
 
         with tracing.device_span("vsr.pp.flows", dev) as flows:
             flows_f, flows_b = self._compute_flows(frames_n, flows)
@@ -366,13 +393,33 @@ class PropainterInpainter:
         with tracing.device_span("vsr.pp.sweep", dev) as sweep:
             enc_all = self._encode_clip(updated_frames, masks, updated_masks)
             del updated_frames
-            mw = self._masked_window_set(mask_dilated) if window_skip else None
             attention_windows = self._attention_windows(H, W)
             sweep.add(windows=len(self._windows(T)), attention_windows=attention_windows,
-                      masked_windows=attention_windows if mw is None else len(mw))
+                      masked_windows=attention_windows if masked_windows is None
+                      else len(masked_windows))
+            return self._sweep_windows(enc_all, comp_f, comp_b, masks, updated_masks, rgb,
+                                       hole > 0, rows, masked_windows)
+
+    @torch.inference_mode()
+    def _inpaint_with_masks(self, frames_bgr, flow_mask, mask_dilated,
+                            window_skip: bool = True) -> List[np.ndarray]:
+        """The staged pipeline with an explicit (flow mask, frame mask) pair,
+        both HxW and the same for every frame: inpaint() passes the dilated
+        subtitle mask twice, outpaint() a flow mask with an overlap margin.
+        ``window_skip`` False runs every attention window's both branches
+        (the dense path, for comparison)."""
+        rows = self._mask_rows(mask_dilated)
+        if rows is None:
+            return [f.copy() for f in frames_bgr]
+        T = len(frames_bgr)
+        dev = self.device
+        with tracing.span("vsr.pp.prepare", frames=T):
+            rgb = self._rgb(torch.from_numpy(np.stack(frames_bgr)).to(dev))
+            flow = torch.from_numpy(np.asarray(flow_mask, np.float32)).to(dev)
+            hole = torch.from_numpy(np.asarray(mask_dilated, np.float32)).to(dev)
+            mw = self._masked_window_set(mask_dilated) if window_skip else None
             mw = None if mw is None else torch.from_numpy(mw).to(dev)
-            comp = self._sweep_windows(enc_all, comp_f, comp_b, masks, updated_masks, rgb,
-                                       hole > 0, rows, mw)
+        comp = self._stages(rgb, flow, hole, rows, mw)
         with tracing.span("vsr.pp.finish", frames=T):
             band = comp.flip(1).permute(0, 2, 3, 1).cpu().numpy()  # the stage's one D2H, BGR
             tracing.resolve_device_times()
@@ -407,20 +454,101 @@ class PropainterInpainter:
         return self._inpaint_with_masks(list(canvas), flow_mask, mask)
 
     # ---- band video path (ref :363-418) ----
+    @torch.inference_mode()
     def __call__(self, input_frames: List[np.ndarray], input_mask: np.ndarray) -> List[np.ndarray]:
+        """Equally sized BGR uint8 frames and an HxW{x1} mask -> the frames
+        with each of the mask's bands inpainted, in band order (band k reads
+        the frames that hold bands < k). The input frames are not written."""
         mask = np.asarray(input_mask)
         if mask.ndim == 2:
             mask = mask[:, :, None]
-        H, W = mask.shape[:2]
-        with tracing.span("vsr.pp.clip", frames=len(input_frames)) as clip:
+        T = len(input_frames)
+        with tracing.span("vsr.pp.clip", frames=T) as clip:
             with tracing.span("vsr.pp.prepare"):
-                bands = get_inpaint_area_by_mask(W, H, int(W * 3 / 16), mask, multiple=8)
-                out = [f.copy() for f in input_frames]
-            for ymin, ymax, xmin, xmax in bands:
+                bands = self._band_plans(mask)
+            frames = [np.ascontiguousarray(f) for f in input_frames]
+            out = None
+            for band in bands:
+                ymin, ymax, xmin, xmax = band.box
                 clip.add(band_px=(ymax - ymin) * (xmax - xmin))
-                comps = self.inpaint([f[ymin:ymax, xmin:xmax] for f in out],
-                                     mask[ymin:ymax, xmin:xmax, 0])
-                with tracing.span("vsr.pp.finish"):
-                    for j in range(len(out)):
-                        out[j][ymin:ymax, xmin:xmax] = comps[j]
-        return out
+                if band.rows is None:
+                    continue
+                src = frames if out is None else out
+                comp = self._inpaint_band(src, band)
+                with tracing.span("vsr.pp.finish", frames=T) as finish:
+                    rows = self._fetch_rows(comp)
+                    del comp
+                    if out is None:  # every output byte is written once, here
+                        out = [np.empty_like(f) for f in frames]
+                    finish.add(workers=native.compose_rows_batch(
+                        src, out, rows, ymin + band.rows[0], xmin))
+        return [f.copy() for f in input_frames] if out is None else out
+
+    def _band_plans(self, mask: np.ndarray) -> List[_Band]:
+        """The bands of an HxWx1 mask with their dilated masks, rows and
+        masked windows, made on the mask's first clip and kept by its bytes."""
+        key = (mask.shape, mask.dtype.str, mask.tobytes())
+        plans = self._plans.get(key)
+        if plans is not None:
+            return plans
+        H, W = mask.shape[:2]
+        plans = []
+        for box in get_inpaint_area_by_mask(W, H, int(W * 3 / 16), mask, multiple=8):
+            ymin, ymax, xmin, xmax = box
+            dilated = dilate_mask(mask[ymin:ymax, xmin:xmax, 0], self.mask_dilation)
+            mw = self._masked_window_set(dilated)
+            plans.append(_Band(box, self._mask_rows(dilated),
+                               torch.from_numpy(dilated).to(self.device),
+                               None if mw is None else torch.from_numpy(mw).to(self.device)))
+        if len(self._plans) >= MASKS_KEPT:
+            del self._plans[next(iter(self._plans))]
+        self._plans[key] = plans
+        return plans
+
+    def _host_buffer(self, name: str, nbytes: int) -> Tuple[torch.Tensor, bool]:
+        """The persistent flat uint8 host buffer ``name`` (pinned on a card)
+        as ``nbytes`` of it, re-made only to hold more; (view, reused)."""
+        buf = getattr(self, name)
+        reused = buf is not None and buf.numel() >= nbytes
+        if not reused:
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+            setattr(self, name, buf)
+        return buf[:nbytes], reused
+
+    def _inpaint_band(self, frames: List[np.ndarray], band: _Band) -> torch.Tensor:
+        """One band of a clip through the four stages: the crops go to the
+        device through the persistent input buffer, in one native call ->
+        the composite's rows that hold the dilated mask, on the device."""
+        T, dev = len(frames), self.device
+        ymin, ymax, xmin, xmax = band.box
+        r0, r1 = band.rows
+        with tracing.span("vsr.pp.prepare", frames=T) as prepare:
+            crop_shape = (T, ymax - ymin, xmax - xmin, 3)
+            host_in, in_kept = self._host_buffer("_host_in", math.prod(crop_shape))
+            _, out_kept = self._host_buffer("_host_out", T * (r1 - r0) * (xmax - xmin) * 3)
+            if self._h2d_done is not None:
+                # the last clip's H2D from the buffer has ended (its D2H wait
+                # saw to that, unless it raised between the two)
+                self._h2d_done.synchronize()
+            crops = host_in.view(crop_shape)
+            workers = native.crop_batch(frames, ymin, xmin, crops.numpy())
+            rgb = self._rgb(crops.to(dev, non_blocking=True))
+            if dev.type == "cuda":
+                self._h2d_done = torch.cuda.Event()
+                self._h2d_done.record(torch.cuda.current_stream(dev))
+            prepare.add(workers=workers, staged=int(in_kept and out_kept))
+        return self._stages(rgb, band.hole, band.hole, band.rows, band.masked_windows)
+
+    def _fetch_rows(self, comp: torch.Tensor) -> np.ndarray:
+        """The composite's rows [T, 3, rows, w] RGB on the device -> [T,
+        rows, w, 3] BGR in the persistent output buffer (valid until the
+        next clip), by one D2H and one wait."""
+        rows = comp.flip(1).permute(0, 2, 3, 1).contiguous()
+        host = self._host_out[:rows.numel()].view(rows.shape)
+        host.copy_(rows, non_blocking=True)
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+        tracing.resolve_device_times()
+        return host.numpy()

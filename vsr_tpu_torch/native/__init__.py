@@ -6,7 +6,9 @@ Parallel work runs on the library's one persistent pool of min(8, cores)
 workers (the calling thread among them), made on first use: ``threads``
 is the most of them a call may take. The per-frame ops share a frame's rows
 among them; the ``*_batch`` ops take a whole chunk in one call and share its
-frames, and return how many workers took part.
+frames, and return how many workers took part. ``crop_batch`` and
+``compose_rows_batch`` are ProPainter's band path: a plain crop into a
+staging buffer and a one-pass compose of each output frame.
 
 g++ builds the shared library at first use into ``vsr_tpu_torch/build/``
 (listed in ``.gitignore``) and rebuilds it when the source is newer. A failed
@@ -76,6 +78,11 @@ def get_lib() -> ctypes.CDLL:
             lib.crop_resize_batch.argtypes = [
                 ptrs, i32, i32, i32, i32, i32, u8p, i32, i32, i32]
             lib.crop_resize_batch.restype = i32
+            lib.crop_batch.argtypes = [ptrs, i32, i32, i32, i32, i32, i32, u8p, i32]
+            lib.crop_batch.restype = i32
+            lib.compose_rows_batch.argtypes = [
+                ptrs, ptrs, i32, i32, i32, u8p, i32, i32, i32, i32, i32]
+            lib.compose_rows_batch.restype = i32
             _lib = lib
     return _lib
 
@@ -186,3 +193,61 @@ def crop_resize_batch(
     ptrs = _frame_ptrs(frames, W, y0 + crop_h)
     return get_lib().crop_resize_batch(
         ptrs, n, W, y0, crop_h, W, _ptr(out), out.shape[1], out.shape[2], threads)
+
+
+def _window(frames: Sequence[np.ndarray], stack: np.ndarray, name: str,
+            y0: int, x0: int) -> int:
+    """Checks that ``stack`` ([N, h, w, 3] uint8) is one window of each of
+    the N ``frames`` at (y0, x0); returns the frames' width."""
+    _check(**{name: stack})
+    n = len(frames)
+    if stack.ndim != 4 or stack.shape[0] != n or stack.shape[3] != 3:
+        raise ValueError(f"{name} is {stack.shape}, expected [{n}, h, w, 3]")
+    W = frames[0].shape[1] if n else 0
+    h, w = stack.shape[1:3]
+    if n and not (0 <= y0 and 0 <= x0 and x0 + w <= W):
+        raise ValueError(f"a {h}x{w} window at ({y0}, {x0}) does not fit {W}-wide frames")
+    return W
+
+
+def crop_batch(
+    frames: Sequence[np.ndarray],  # N x [H, W, 3] uint8
+    y0: int,
+    x0: int,
+    out: np.ndarray,               # [N, h, w, 3] uint8
+    threads: int = DEFAULT_THREADS,
+) -> int:
+    """``out[j] = frames[j][y0:y0 + h, x0:x0 + w]`` for a whole chunk in one
+    call, a frame per worker. Returns the workers that took part."""
+    W = _window(frames, out, "out", y0, x0)
+    h, w = out.shape[1:3]
+    ptrs = _frame_ptrs(frames, W, y0 + h)
+    return get_lib().crop_batch(ptrs, len(frames), W, y0, x0, h, w, _ptr(out), threads)
+
+
+def compose_rows_batch(
+    srcs: Sequence[np.ndarray],  # N x [H, W, 3] uint8
+    dsts: Sequence[np.ndarray],  # N x [H, W, 3] uint8, written
+    rows: np.ndarray,            # [N, h, w, 3] uint8
+    y0: int,
+    x0: int,
+    threads: int = DEFAULT_THREADS,
+) -> int:
+    """``dsts[j]`` = ``srcs[j]`` with the window ``[y0:y0 + h, x0:x0 + w]``
+    from ``rows[j]``, each byte of ``dsts[j]`` written once, for a whole
+    chunk in one call, a frame per worker. Where ``dsts[j]`` is
+    ``srcs[j]`` only the window is written. Returns the workers that took
+    part."""
+    W = _window(srcs, rows, "rows", y0, x0)
+    if len(dsts) != len(srcs):
+        raise ValueError(f"{len(dsts)} destinations for {len(srcs)} frames")
+    H = srcs[0].shape[0] if len(srcs) else 0
+    for j, (src, dst) in enumerate(zip(srcs, dsts)):
+        if src.shape != (H, W, 3) or dst.shape != (H, W, 3):
+            raise ValueError(f"frame {j}: {src.shape} into {dst.shape}, expected {(H, W, 3)}")
+        if dst.ctypes.data != src.ctypes.data and np.may_share_memory(src, dst):
+            raise ValueError(f"frame {j}: the destination overlaps its source")
+    src_ptrs = _frame_ptrs(srcs, W, y0 + rows.shape[1])
+    dst_ptrs = _frame_ptrs(dsts, W, H)
+    return get_lib().compose_rows_batch(src_ptrs, dst_ptrs, len(srcs), H, W, _ptr(rows),
+                                        y0, x0, rows.shape[1], rows.shape[2], threads)

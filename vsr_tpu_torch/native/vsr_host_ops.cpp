@@ -8,7 +8,8 @@
 // mask (backend/inpaint/sttn_auto_inpaint.py:312-315 semantics). Doing that
 // as two cv2 calls costs two full-band passes plus a temporary; this fuses
 // bilinear upsample + masked blend into one pass and writes straight into
-// the frame buffer.
+// the frame buffer. ProPainter's band path works at native size: a plain
+// crop of each band and a one-pass compose of each output frame.
 //
 // Bilinear sampling matches cv2.resize(INTER_LINEAR) geometry (half-pixel
 // centers, edge clamp) with float weights; outputs may differ from OpenCV's
@@ -314,6 +315,50 @@ int crop_resize_batch(const uint8_t* const* frames, int n, int frame_w,
   const size_t out_size = static_cast<size_t>(out_h) * out_w * 3;
   return run_items(n, n_threads, [&](int j) {
     for (int y = 0; y < out_h; ++y) g.resize(frames[j], out + j * out_size, y);
+  });
+}
+
+// Plain crop over a chunk: rows [y0, y0 + h), columns [x0, x0 + w) of
+// frames[j] (frame_w wide) into out[j] (out: n x h x w x 3). Whole frames
+// are spread over at most n_threads pool workers; returns how many took part.
+int crop_batch(const uint8_t* const* frames, int n, int frame_w,
+               int y0, int x0, int h, int w, uint8_t* out, int n_threads) {
+  const size_t row = static_cast<size_t>(w) * 3;
+  const size_t stride = static_cast<size_t>(frame_w) * 3;
+  return run_items(n, n_threads, [&](int j) {
+    const uint8_t* src = frames[j] + (static_cast<size_t>(y0) * frame_w + x0) * 3;
+    uint8_t* dst = out + static_cast<size_t>(j) * h * row;
+    for (int y = 0; y < h; ++y) std::memcpy(dst + y * row, src + y * stride, row);
+  });
+}
+
+// One pass a frame over a chunk: dsts[j] (frame_h x frame_w x 3) becomes
+// srcs[j] with the window rows [y0, y0 + h), columns [x0, x0 + w) taken
+// from rows[j] (rows: n x h x w x 3), so each byte of dsts[j] is written
+// once. Where dsts[j] is srcs[j], only the window is written. Whole frames
+// are spread over at most n_threads pool workers; returns how many took part.
+int compose_rows_batch(const uint8_t* const* srcs, uint8_t* const* dsts, int n,
+                       int frame_h, int frame_w, const uint8_t* rows,
+                       int y0, int x0, int h, int w, int n_threads) {
+  const size_t line = static_cast<size_t>(frame_w) * 3;
+  const size_t left = static_cast<size_t>(x0) * 3, mid = static_cast<size_t>(w) * 3;
+  const size_t right = line - left - mid;
+  return run_items(n, n_threads, [&](int j) {
+    const uint8_t* src = srcs[j];
+    uint8_t* dst = dsts[j];
+    const bool in_place = src == dst;
+    const uint8_t* win = rows + static_cast<size_t>(j) * h * mid;
+    if (!in_place) std::memcpy(dst, src, static_cast<size_t>(y0) * line);
+    for (int y = y0; y < y0 + h; ++y) {
+      const size_t at = static_cast<size_t>(y) * line;
+      if (!in_place) std::memcpy(dst + at, src + at, left);
+      std::memcpy(dst + at + left, win + static_cast<size_t>(y - y0) * mid, mid);
+      if (!in_place) std::memcpy(dst + at + left + mid, src + at + left + mid, right);
+    }
+    if (!in_place) {
+      const size_t below = static_cast<size_t>(y0 + h) * line;
+      std::memcpy(dst + below, src + below, static_cast<size_t>(frame_h) * line - below);
+    }
   });
 }
 
