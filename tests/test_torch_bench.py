@@ -1,7 +1,6 @@
-"""The port's bench scripts (bench_torch.py, scripts/bench_modes_torch.py,
-bench_parity_torch.py) against the JAX package's (bench.py,
-scripts/bench_modes.py, bench_parity.py): the same inputs, the same helpers,
-bench_torch's trial rule and result line, and one CPU run of
+"""The port's bench scripts (scripts/bench_modes_torch.py,
+bench_parity_torch.py) against the JAX package's (scripts/bench_modes.py,
+bench_parity.py): the same inputs, the same helpers, and one CPU run of
 bench_parity_torch's config 2 end to end. Every script is loaded by path;
 the JAX scripts' module level imports only numpy, cv2 and the standard
 library."""
@@ -17,8 +16,6 @@ import cv2
 import numpy as np
 import pytest
 
-from vsr_tpu.masks.mask import create_mask as jax_create_mask
-
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -33,24 +30,8 @@ def _load(relpath):
 @pytest.fixture(scope="module")
 def scripts():
     return {name: _load(path) for name, path in (
-        ("bench_torch", "bench_torch.py"),
         ("modes", "scripts/bench_modes.py"), ("modes_torch", "scripts/bench_modes_torch.py"),
         ("parity", "bench_parity.py"), ("parity_torch", "bench_parity_torch.py"))}
-
-
-def test_bench_frames_and_mask_equal_bench_py(scripts):
-    """bench.py's frames (its expression, bench.py:94-96) and its mask
-    (vsr_tpu's create_mask with its band, bench.py:98)."""
-    bench = scripts["bench_torch"]
-    n = 3
-    rng = np.random.default_rng(0)
-    base = rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
-    want = [np.roll(base, 7 * i, axis=1) for i in range(n)]
-    got = bench.synthetic_frames(n)
-    assert (bench.W, bench.H) == (1920, 1080)
-    assert len(got) == n and all(np.array_equal(a, b) for a, b in zip(got, want))
-    np.testing.assert_array_equal(
-        bench.bench_mask(), jax_create_mask((1080, 1920), [(300, 1620, 960, 1040)]))
 
 
 def test_bench_modes_geometry_and_frames_equal(scripts):
@@ -100,51 +81,6 @@ def test_video_stats_and_trim_equal_bench_parity(scripts, tmp_path):
     assert results[0] == results[1]
     assert results[0][0] == 11 and results[0][1] == (480.0, 256.0)
     assert results[0][2][0] == 11 and np.isfinite(results[0][2][1])
-
-
-@pytest.mark.parametrize("times, trials, want_extra", [
-    ([1.0, 1.1, 1.2, 1.0, 1.05], 5, 0),            # spread 20%: no retry
-    ([1.5, 1.0, 1.0, 1.0, 1.0, 1.0], 5, 1),        # one extra drops the 1.5
-    ([1.0, 2.0, 1.0, 1.0, 1.0, 3.0, 1.0, 1.0, 1.0, 1.0], 5, 4),  # up to 4
-    ([1.0, 1.3, 1.0, 1.3, 1.0, 1.3, 1.0, 1.3, 1.0, 1.3, 1.0], 5, 4),  # never settles
-])
-def test_trial_rule(scripts, times, trials, want_extra):
-    """Fake timings: no retry at <= 20%, extra trials while the last
-    ``trials`` spread over 20%, at most 4; best, median and spread of all."""
-    bench = scripts["bench_torch"]
-    feed = iter(times)
-    got = bench.run_trials(lambda: next(feed), trials, 4)
-    assert got == times[:trials + want_extra]
-    summary = bench.summarize(got, 250)
-    assert summary["value"] == 250 / min(got)
-    assert summary["median"] == 250 / float(np.median(got))
-    assert summary["spread"] == (max(got) - min(got)) / min(got)
-    assert summary["trial_s"] == got
-
-
-def test_result_line_keys(scripts):
-    bench = scripts["bench_torch"]
-    summary = bench.summarize([2.5, 2.6, 2.55], 250)
-    line = bench.result_line(summary, 250, "bfloat16", ("NVIDIA H100 80GB HBM3", 700.0),
-                             800, 800, (4, 0.11))
-    assert set(line) == {"metric", "unit", "value", "median", "spread", "trial_s", "frames",
-                         "dtype", "name", "power_limit_w", "kernel_launches",
-                         "expected_launches", "route_max_u8", "route_mean_u8"}
-    assert line["metric"] == "sttn_auto_1080p_fps" and "vs_baseline" not in line
-    assert json.loads(json.dumps(line)) == line
-
-
-def test_check_output_catches_a_changed_pixel_outside_the_mask(scripts):
-    bench = scripts["bench_torch"]
-    mask = np.zeros((8, 10), np.uint8)
-    mask[5:7, 2:8] = 255
-    src = [np.full((8, 10, 3), 7, np.uint8)]
-    out = [src[0].copy()]
-    out[0][5:7, 2:8] = 9
-    bench.check_output(src, out, mask)
-    out[0][5, 9] = 0  # a band row, outside the mask
-    with pytest.raises(AssertionError, match="outside"):
-        bench.check_output(src, out, mask)
 
 
 # Runs a script as its own __main__, as `python SCRIPT ARGS...` would, with

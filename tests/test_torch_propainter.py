@@ -31,6 +31,7 @@ from vsr_tpu.models.propainter.generator import ProPainterGenerator as FlaxGener
 from vsr_tpu.models.propainter.raft import RAFT as FlaxRAFT
 from vsr_tpu_torch.config import Config
 from vsr_tpu_torch.inpaint import propainter as pp
+from vsr_tpu_torch.utils import tracing
 
 TINY_GEN = dict(channel=16, hidden=32, depths=2, n_head=2, window_size=(3, 4), pool_size=(2, 2))
 RAFT_KW = dict(corr_levels=2, corr_radius=2)
@@ -166,10 +167,12 @@ def test_window_skip_equals_dense(inpainters):
     mask = np.zeros((48, 128), np.uint8)
     mask[30:40, 40:64] = 255
     dilated = pp.dilate_mask(mask, inp.mask_dilation)
-    mw = inp._masked_window_set(dilated)
+    plan = inp._plan((0, 48, 0, 128), dilated, dilated)
+    mw = plan.masked_windows
     assert mw is not None and 0 < len(mw)
-    skip = inp._inpaint_with_masks(frames, dilated, dilated)
-    dense = inp._inpaint_with_masks(frames, dilated, dilated, window_skip=False)
+    clip = tracing.span("vsr.pp.clip")
+    skip = inp._inpaint_bands(frames, [plan], clip)
+    dense = inp._inpaint_bands(frames, [plan._replace(masked_windows=None)], clip)
     for a, b in zip(skip, dense):
         np.testing.assert_array_equal(a, b)
 

@@ -237,14 +237,13 @@ def test_cuda_without_gpu_raises():
         resolve_device("cuda")
 
 
-BENCH_SCRIPTS = ("bench_torch.py", os.path.join("scripts", "bench_modes_torch.py"),
-                 "bench_parity_torch.py")
+BENCH_SCRIPTS = (os.path.join("scripts", "bench_modes_torch.py"), "bench_parity_torch.py")
 
 
 def test_port_never_imports_jax():
     """Every module of vsr_tpu_torch (``convert.__main__`` too: it does
     nothing on import), chip_smoke and kernel_faults imported in a fresh
-    process, `python -m vsr_tpu_torch --help` run there, and the three bench
+    process, `python -m vsr_tpu_torch --help` run there, and the two bench
     scripts loaded by path with `--help` run: nothing of jax, flax or the JAX
     package vsr_tpu is loaded."""
     code = (

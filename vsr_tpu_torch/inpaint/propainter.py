@@ -34,20 +34,23 @@ flow and the frame masks (ref read_mask). The host sends the clip's uint8
 BGR frames once and receives only the rows that hold the dilated mask:
 elsewhere the composite is the source (prediction * mask + source * (1 -
 mask), and the blend of two equal uint8 values is that value). ``__call__``
-crops native-resolution full-width bands rounded to multiples of 8.
+crops native-resolution full-width bands rounded to multiples of 8;
+``inpaint()`` runs the whole frame as one band, and ``outpaint()`` the
+whole canvas with its own flow mask.
 
-``__call__``'s host path is persistent and batched: a mask's bands, dilated
-masks, rows, masked windows and device masks are made on its first clip
-and kept (``MASKS_KEPT`` masks, by their bytes); each band's crops go into
-one persistent host buffer (pinned on a card) in one native call on the
-host pool and reach the device by one asynchronous H2D; the returned rows
-come back by one D2H into a second persistent buffer; one native call then
+All three run one host path, persistent and batched, band by band from a
+band's plan (box, flow and frame masks on the device, rows, masked
+windows). ``__call__`` makes a mask's plans on its first clip and keeps
+them (``MASKS_KEPT`` masks, by their bytes). Each band's crops go into one
+persistent host buffer (pinned on a card) in one native call on the host
+pool and reach the device by one asynchronous H2D; the returned rows come
+back by one D2H into a second persistent buffer; one native call then
 writes each output frame once (rows outside the returned ones from the
 input frame). The buffers grow to the largest clip seen and are re-made
-only then. ``inpaint()`` and ``outpaint()`` keep the plain numpy route.
+only then.
 
 Spans (``utils.tracing``, recorded only while a torch profiler records):
-``vsr.pp.clip`` around each ``__call__`` (frames, band pixels), over
+``vsr.pp.clip`` around each clip (frames, band pixels), over
 ``vsr.pp.prepare`` (the band plans; per band the crop, the H2D, with the
 pool workers that cropped and ``staged`` 1 where both buffers were reused),
 the four device stages ``vsr.pp.flows`` (pairs, pair chunks),
@@ -141,10 +144,11 @@ MASKS_KEPT = 4
 
 
 class _Band(NamedTuple):
-    """One band of a mask, as every clip under that mask needs it."""
+    """One band of a clip's frames, as every clip under its masks needs it."""
     box: Tuple[int, int, int, int]       # ymin, ymax, xmin, xmax in the frame
-    rows: Optional[Tuple[int, int]]      # the dilated mask's rows in the band
-    hole: torch.Tensor                   # [h, w] float32 dilated mask, on the device
+    rows: Optional[Tuple[int, int]]      # the frame mask's rows in the band
+    flow_mask: torch.Tensor              # [h, w] float32, on the device
+    hole: torch.Tensor                   # [h, w] float32 frame mask, on the device
     masked_windows: Optional[torch.Tensor]  # _masked_window_set, on the device
 
 
@@ -191,8 +195,8 @@ class PropainterInpainter:
         # the window sweep's generators, one per mesh device (None: the
         # generator alone)
         self.replicas = replicate(self.generator, mesh) if mesh else None
-        # __call__'s band plans by mask, and its persistent host staging
-        # (pinned on a card): the clip's band crops in, its returned rows out
+        # __call__'s band plans by mask, and the persistent host staging
+        # (pinned on a card): a band's crops in, its returned rows out
         self._plans: Dict[tuple, List[_Band]] = {}
         self._host_in: Optional[torch.Tensor] = None
         self._host_out: Optional[torch.Tensor] = None
@@ -318,11 +322,15 @@ class PropainterInpainter:
     # ---- the clip ----
     def inpaint(self, frames_bgr: List[np.ndarray], mask: np.ndarray) -> List[np.ndarray]:
         """Equally sized BGR uint8 frames and an HxW{x1} mask -> the
-        inpainted BGR uint8 frames. H and W must be multiples of 8 (the band
-        solver's multiple=8 sees to it)."""
-        with tracing.span("vsr.pp.prepare"):
-            dilated = dilate_mask(mask, self.mask_dilation)
-        return self._inpaint_with_masks(frames_bgr, dilated, dilated)
+        inpainted BGR uint8 frames, the whole frame as one band. H and W must
+        be multiples of 8 (the band solver's multiple=8 sees to it). The
+        input frames are not written."""
+        with tracing.span("vsr.pp.clip", frames=len(frames_bgr)) as clip:
+            with tracing.span("vsr.pp.prepare"):
+                dilated = dilate_mask(mask, self.mask_dilation)
+                H, W = dilated.shape
+                plan = self._plan((0, H, 0, W), dilated, dilated)
+            return self._inpaint_bands(frames_bgr, [plan], clip)
 
     @staticmethod
     def _mask_rows(mask: np.ndarray) -> Optional[Tuple[int, int]]:
@@ -400,37 +408,6 @@ class PropainterInpainter:
             return self._sweep_windows(enc_all, comp_f, comp_b, masks, updated_masks, rgb,
                                        hole > 0, rows, masked_windows)
 
-    @torch.inference_mode()
-    def _inpaint_with_masks(self, frames_bgr, flow_mask, mask_dilated,
-                            window_skip: bool = True) -> List[np.ndarray]:
-        """The staged pipeline with an explicit (flow mask, frame mask) pair,
-        both HxW and the same for every frame: inpaint() passes the dilated
-        subtitle mask twice, outpaint() a flow mask with an overlap margin.
-        ``window_skip`` False runs every attention window's both branches
-        (the dense path, for comparison)."""
-        rows = self._mask_rows(mask_dilated)
-        if rows is None:
-            return [f.copy() for f in frames_bgr]
-        T = len(frames_bgr)
-        dev = self.device
-        with tracing.span("vsr.pp.prepare", frames=T):
-            rgb = self._rgb(torch.from_numpy(np.stack(frames_bgr)).to(dev))
-            flow = torch.from_numpy(np.asarray(flow_mask, np.float32)).to(dev)
-            hole = torch.from_numpy(np.asarray(mask_dilated, np.float32)).to(dev)
-            mw = self._masked_window_set(mask_dilated) if window_skip else None
-            mw = None if mw is None else torch.from_numpy(mw).to(dev)
-        comp = self._stages(rgb, flow, hole, rows, mw)
-        with tracing.span("vsr.pp.finish", frames=T):
-            band = comp.flip(1).permute(0, 2, 3, 1).cpu().numpy()  # the stage's one D2H, BGR
-            tracing.resolve_device_times()
-            r0, r1 = rows
-            out = []
-            for j, frame in enumerate(frames_bgr):
-                f = frame.copy()
-                f[r0:r1] = band[j]
-                out.append(f)
-        return out
-
     # ---- video outpainting (ref extrapolation :80-118) ----
     def outpaint(self, frames_bgr: List[np.ndarray],
                  scale: Tuple[float, float]) -> List[np.ndarray]:
@@ -451,10 +428,12 @@ class PropainterInpainter:
         flow_mask[y0 + dil_h:y0 + h - dil_h, x0 + dil_w:x0 + w - dil_w] = 0
         mask = np.ones((eh, ew), np.float32)
         mask[y0:y0 + h, x0:x0 + w] = 0
-        return self._inpaint_with_masks(list(canvas), flow_mask, mask)
+        with tracing.span("vsr.pp.clip", frames=n) as clip:
+            with tracing.span("vsr.pp.prepare"):
+                plan = self._plan((0, eh, 0, ew), flow_mask, mask)
+            return self._inpaint_bands(list(canvas), [plan], clip)
 
     # ---- band video path (ref :363-418) ----
-    @torch.inference_mode()
     def __call__(self, input_frames: List[np.ndarray], input_mask: np.ndarray) -> List[np.ndarray]:
         """Equally sized BGR uint8 frames and an HxW{x1} mask -> the frames
         with each of the mask's bands inpainted, in band order (band k reads
@@ -462,31 +441,40 @@ class PropainterInpainter:
         mask = np.asarray(input_mask)
         if mask.ndim == 2:
             mask = mask[:, :, None]
-        T = len(input_frames)
-        with tracing.span("vsr.pp.clip", frames=T) as clip:
+        with tracing.span("vsr.pp.clip", frames=len(input_frames)) as clip:
             with tracing.span("vsr.pp.prepare"):
-                bands = self._band_plans(mask)
-            frames = [np.ascontiguousarray(f) for f in input_frames]
-            out = None
-            for band in bands:
-                ymin, ymax, xmin, xmax = band.box
-                clip.add(band_px=(ymax - ymin) * (xmax - xmin))
-                if band.rows is None:
-                    continue
-                src = frames if out is None else out
-                comp = self._inpaint_band(src, band)
-                with tracing.span("vsr.pp.finish", frames=T) as finish:
-                    rows = self._fetch_rows(comp)
-                    del comp
-                    if out is None:  # every output byte is written once, here
-                        out = [np.empty_like(f) for f in frames]
-                    finish.add(workers=native.compose_rows_batch(
-                        src, out, rows, ymin + band.rows[0], xmin))
+                plans = self._band_plans(mask)
+            return self._inpaint_bands(input_frames, plans, clip)
+
+    @torch.inference_mode()
+    def _inpaint_bands(self, input_frames: List[np.ndarray], plans: List[_Band],
+                       clip) -> List[np.ndarray]:
+        """The frames with each plan's band inpainted, in plan order (band k
+        reads the frames that hold bands < k); ``clip``, the clip's span,
+        counts the bands' pixels. The input frames are not written."""
+        T = len(input_frames)
+        frames = [np.ascontiguousarray(f) for f in input_frames]
+        out = None
+        for band in plans:
+            ymin, ymax, xmin, xmax = band.box
+            clip.add(band_px=(ymax - ymin) * (xmax - xmin))
+            if band.rows is None:
+                continue
+            src = frames if out is None else out
+            comp = self._inpaint_band(src, band)
+            with tracing.span("vsr.pp.finish", frames=T) as finish:
+                rows = self._fetch_rows(comp)
+                del comp
+                if out is None:  # every output byte is written once, here
+                    out = [np.empty_like(f) for f in frames]
+                finish.add(workers=native.compose_rows_batch(
+                    src, out, rows, ymin + band.rows[0], xmin))
         return [f.copy() for f in input_frames] if out is None else out
 
     def _band_plans(self, mask: np.ndarray) -> List[_Band]:
-        """The bands of an HxWx1 mask with their dilated masks, rows and
-        masked windows, made on the mask's first clip and kept by its bytes."""
+        """The plans of an HxWx1 mask's bands, each band's dilated mask its
+        flow and frame mask, made on the mask's first clip and kept by its
+        bytes."""
         key = (mask.shape, mask.dtype.str, mask.tobytes())
         plans = self._plans.get(key)
         if plans is not None:
@@ -496,14 +484,23 @@ class PropainterInpainter:
         for box in get_inpaint_area_by_mask(W, H, int(W * 3 / 16), mask, multiple=8):
             ymin, ymax, xmin, xmax = box
             dilated = dilate_mask(mask[ymin:ymax, xmin:xmax, 0], self.mask_dilation)
-            mw = self._masked_window_set(dilated)
-            plans.append(_Band(box, self._mask_rows(dilated),
-                               torch.from_numpy(dilated).to(self.device),
-                               None if mw is None else torch.from_numpy(mw).to(self.device)))
+            plans.append(self._plan(box, dilated, dilated))
         if len(self._plans) >= MASKS_KEPT:
             del self._plans[next(iter(self._plans))]
         self._plans[key] = plans
         return plans
+
+    def _plan(self, box: Tuple[int, int, int, int], flow_mask: np.ndarray,
+              hole: np.ndarray) -> _Band:
+        """The plan of the band ``box`` from its flow and frame masks, [h, w]
+        float32 and the same for every frame (one tensor on the device where
+        they are one array)."""
+        dev = self.device
+        hole_d = torch.from_numpy(hole).to(dev)
+        flow_d = hole_d if flow_mask is hole else torch.from_numpy(flow_mask).to(dev)
+        mw = self._masked_window_set(hole)
+        return _Band(box, self._mask_rows(hole), flow_d, hole_d,
+                     None if mw is None else torch.from_numpy(mw).to(dev))
 
     def _host_buffer(self, name: str, nbytes: int) -> Tuple[torch.Tensor, bool]:
         """The persistent flat uint8 host buffer ``name`` (pinned on a card)
@@ -537,7 +534,7 @@ class PropainterInpainter:
                 self._h2d_done = torch.cuda.Event()
                 self._h2d_done.record(torch.cuda.current_stream(dev))
             prepare.add(workers=workers, staged=int(in_kept and out_kept))
-        return self._stages(rgb, band.hole, band.hole, band.rows, band.masked_windows)
+        return self._stages(rgb, band.flow_mask, band.hole, band.rows, band.masked_windows)
 
     def _fetch_rows(self, comp: torch.Tensor) -> np.ndarray:
         """The composite's rows [T, 3, rows, w] RGB on the device -> [T,

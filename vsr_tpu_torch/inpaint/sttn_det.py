@@ -22,7 +22,9 @@ import torch
 
 from vsr_tpu_torch.config import Config
 from vsr_tpu_torch.inpaint.engine import STTNWindowEngine
-from vsr_tpu_torch.inpaint.paste import band_out_rows, paste_band
+# paste_band stays importable from here: the benchmark's traced run wraps
+# the names it finds on this module
+from vsr_tpu_torch.inpaint.paste import band_out_rows, paste_band, paste_band_chunk  # noqa: F401
 from vsr_tpu_torch.inpaint.weights import load_sttn_weights
 from vsr_tpu_torch.masks.solver import get_inpaint_area_by_mask
 from vsr_tpu_torch.models.sttn import STTN_DET_INPUT_SIZE, STTNGenerator
@@ -112,9 +114,9 @@ class STTNDetInpainter:
             masks = np.repeat(binary[None], len(input_frames), axis=0)
             rows = band_out_rows(mask01, band, self.model_input_height)
             comps = self._inpaint_scaled(scaled, masks, rows)
-            for j in range(len(out)):
-                with tracing.span("vsr.paste", frames=1):
-                    paste_band(out[j], comps[j], band, mask01, self.model_input_height, rows)
+            with tracing.span("vsr.paste", frames=len(out)) as paste:
+                paste.add(workers=paste_band_chunk(out, comps, band, mask01,
+                                                   self.model_input_height, rows))
         return out
 
     def _inpaint_scaled(self, scaled: np.ndarray, masks: np.ndarray,
